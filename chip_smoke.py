@@ -7,18 +7,25 @@ Run from the repo root on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at
-     adversarial shapes and at the main path's shapes, and time kernel,
+     adversarial shapes and at the main paths' shapes, and time kernel,
      plain version and (where one exists) a single PyTorch library call;
   4. drive the serving path at the LightGCN FULL width
      (``src/repro/configs/lightgcn.py:7``: 349,184 users x 53,248 items,
      D = 128, 3 layers) with 2^24 requested edges: data -> BipartiteCSR
      -> seeded init -> forward -> Recommender -> RecommenderService
      serving 1,024 Zipf-drawn requests -> held-out evaluation, with every
-     response checked and the kernels' launch counts read;
-  5. print ``{"kernels": [...]}`` and, last, the device line.
+     response checked and the serving kernels' launch counts read;
+  5. drive the training path at the NGCF FULL width
+     (``src/repro/configs/ngcf.py:21``: the same users, items and D,
+     target batch 150,528) on the same graph, with depth cut from 3 to 2
+     layers (see TRAIN_LAYERS): Pipeline.step_fn for 3 Adam steps of 2
+     accumulated microbatches each, fused Hadamard route; the first
+     microbatch's loss and gradients held against the plain route, and
+     the training kernels' launch counts read;
+  6. print ``{"kernels": [...]}`` and, last, the device line.
 Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
 from __future__ import annotations
@@ -34,7 +41,8 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# LightGCN FULL (src/repro/configs/lightgcn.py:7)
+# LightGCN FULL (src/repro/configs/lightgcn.py:7); NGCF FULL
+# (src/repro/configs/ngcf.py:21) has the same users, items, D and layers
 N_USERS, N_ITEMS, EMBED_DIM, N_LAYERS = 349_184, 53_248, 128, 3
 FULL_EDGES = 250_085_376
 EDGES = 1 << 24            # the one cut: host-side generation time
@@ -44,6 +52,15 @@ MAX_BATCH, MAX_WAIT_US, N_REQUESTS, ARRIVAL_US = 64, 1_000, 1_024, 50
 N_EVAL_USERS = 16_384
 N_SAMPLE = 256
 RTOL = ATOL = 1e-5         # fp32 sums in another order than the plain version
+# NGCF FULL training: target batch 150,528 in 2 microbatches, 3 steps
+TARGET_BATCH, MICROBATCH, TRAIN_STEPS = 150_528, 75_264, 3
+# Depth cut: the reference's NGCF sums messages without degree
+# normalisation, and each layer's Hadamard term multiplies two aggregated
+# embeddings, so activations grow about quadratically per layer over
+# rows of up to 256k edges; with 3 layers the first backward overflows
+# float32 on this graph (gradients inf/NaN), with 2 it stays finite.
+TRAIN_LAYERS = 2
+GRAD_RTOL = 1e-4           # per gradient leaf, relative in the norm
 # H100 SXM datasheet peaks (NVIDIA, dense, without sparsity)
 PEAK_FP32 = 67e12          # FLOP/s, CUDA cores
 PEAK_BYTES = 3.35e12       # bytes/s, HBM3
@@ -55,6 +72,9 @@ TOLERANCE = {
     "fused_topk_score": "ids and scores bitwise on integer-valued inputs; "
                         f"else scores allclose rtol={RTOL} atol={ATOL} and "
                         "ids equal except at near-ties",
+    "hadamard_spmm": "bitwise on integer-valued inputs; adversarial: "
+                     f"allclose rtol={RTOL} atol={ATOL}; main: |err| <= "
+                     f"{ATOL} + {RTOL} * sum of |terms| per element",
 }
 
 KERNELS = {
@@ -64,7 +84,12 @@ KERNELS = {
                       "src/repro/kernels/embedding_bag.py:55"),
     "fused_topk_score": ("src/repro_torch/kernels/csrc/topk_score.cu",
                          "src/repro/kernels/topk_score.py:90"),
+    "hadamard_spmm": ("src/repro_torch/kernels/csrc/hadamard_spmm.cu",
+                      "src/repro/kernels/hadamard_spmm.py:106"),
 }
+# the kernels each main path runs
+SERVING_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
+TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
 
 
 class SmokeFailure(RuntimeError):
@@ -299,6 +324,50 @@ def check_topk(torch, dev, rng) -> float:
     return worst
 
 
+def check_hadamard(torch, dev, rng) -> float:
+    """General form (x_idx != y_idx): D in {128, 100, 130, 37}, empty rows,
+    zero edges, the scale + leaky-relu epilogue, and integer-valued inputs
+    (with and without the epilogue) that must match bitwise."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmm import build_csr_by_dst
+    worst = 0.0
+    for n_src, n, e, d, integer, epi in [
+            (1000, 800, 6000, 128, False, False),
+            (1000, 800, 6000, 100, False, True),
+            (333, 200, 2000, 130, False, True), (50, 40, 300, 37, False, False),
+            (7, 9, 0, 128, False, True), (120, 90, 900, 128, True, False),
+            (120, 90, 900, 37, True, True), (60, 50, 400, 130, True, True)]:
+        dst = rng.integers(0, max(n // 2, 1), e)
+        indptr, x_idx, perm = build_csr_by_dst(dst, rng.integers(0, n_src, e), n)
+        y_idx = rng.integers(0, n, e).astype(np.int32)[perm]
+        require(e == 0 or not np.array_equal(x_idx, y_idx), "x_idx == y_idx")
+        if integer:
+            x = rng.integers(-3, 4, (n_src, d)).astype(np.float32)
+            y = rng.integers(-3, 4, (n, d)).astype(np.float32)
+            scale = rng.integers(-2, 3, n).astype(np.float32)
+        else:
+            x = rng.standard_normal((n_src, d)).astype(np.float32)
+            y = rng.standard_normal((n, d)).astype(np.float32)
+            scale = rng.standard_normal(n).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (x, y)]
+        args += [torch.from_numpy(indptr).to(dev, torch.int64),
+                 torch.from_numpy(x_idx).to(dev), torch.from_numpy(y_idx).to(dev),
+                 n]
+        kw = dict(scale=torch.from_numpy(scale).to(dev), slope=0.2) if epi else {}
+        got = ops.hadamard_spmm(*args, impl="cuda", **kw)
+        want = ref.hadamard_spmm_ref(*args, **kw)
+        torch.cuda.synchronize()
+        what = f"hadamard_spmm n={n} e={e} d={d} epilogue={epi}"
+        if integer:
+            require(torch.equal(got, want), f"{what}: not bitwise on integers")
+        else:
+            worst = max(worst, close(torch, got, want, what))
+        empty = torch.from_numpy(np.diff(indptr) == 0).to(dev)
+        require(bool(empty.any()), "hadamard case has no empty row")
+        require(bool((got[empty] == 0).all()), "hadamard empty row != 0")
+    return worst
+
+
 # ------------------------------------------------------------------ phase 4
 def build_graph(torch, dev):
     from repro_torch.data import synth
@@ -321,7 +390,7 @@ def build_graph(torch, dev):
           "max_user_degree": int(deg_u.max()),
           "mean_item_degree": float(deg_i.mean()),
           "mean_user_degree": float(deg_u.mean())})
-    return g, test
+    return g, train, test
 
 
 def close_sum(torch, got, want, abs_sum, what: str) -> float:
@@ -535,8 +604,9 @@ def main_path(torch, g, test, params):
     total_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
 
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the serving path")
     for name, t in (("user", user_f), ("item", item_f)):
         require(bool(torch.isfinite(t).all()), f"non-finite {name} embeddings")
     require(tuple(user_f.shape) == (N_USERS, EMBED_DIM)
@@ -572,29 +642,251 @@ def main_path(torch, g, test, params):
     return user_f, item_f, launches, eval_users
 
 
+# ------------------------------------------------------------------ phase 5
+def value_and_grad_timed(torch, pipe, params, batch):
+    """One microbatch's (loss, grads) as ``Pipeline.value_and_grad`` takes
+    them, with forward and backward timed apart (host clock around
+    synchronised work)."""
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = pipe.loss(live, *batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, float(loss.detach()), grads
+
+
+def train_path(torch, dev, train):
+    """NGCF FULL training through ``Pipeline.step_fn``; returns the
+    launches of the 3-step run, the pipeline and the layer-0 inputs (the
+    initial user and item tables)."""
+    from repro_torch import kernels
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    cfg = PipelineConfig(arch="ngcf", embed_dim=EMBED_DIM, n_layers=TRAIN_LAYERS,
+                         optimizer="adam", target_batch=TARGET_BATCH,
+                         base_batch=TARGET_BATCH, microbatch=MICROBATCH,
+                         warmup_epochs=0, hadamard="auto", seed=SEED)
+    emit({"reduced": {"n_layers": TRAIN_LAYERS, "config_n_layers": N_LAYERS,
+                      "why": "3 unnormalised NGCF layers overflow float32 "
+                             "in the backward on this graph's degrees"}})
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, train, device=dev)
+    state = pipe.init_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    require(pipe.g.fused_hadamard, "hadamard='auto' did not pick the fused route")
+    k = pipe.plan.microbatches_for_epoch(0)
+    require(k == 2, f"{k} microbatches per step, expected 2")
+    require(pipe.lr_for_epoch(0) == cfg.base_lr, "LR is not base_lr")
+
+    # the first microbatch on the kernels (twice: the first call warms up)
+    # and on the plain route
+    users, pos, neg = pipe._next_target_batch(k, 0)
+    batch = [pipe._batch(a[:MICROBATCH]) for a in (users, pos, neg)]
+    fwd_ms, bwd_ms = [], []
+    for _ in range(2):
+        f, b, loss_k, grads_k = value_and_grad_timed(torch, pipe,
+                                                     state["params"], batch)
+        fwd_ms.append(f)
+        bwd_ms.append(b)
+    pipe.g.impl = "torch"
+    before = kernels.launch_counts()
+    pf, pb, loss_p, grads_p = value_and_grad_timed(torch, pipe,
+                                                   state["params"], batch)
+    require(kernels.launch_counts() == before, "the plain route launched a kernel")
+    pipe.g.impl = None
+    names = [f"leaf{i}{tuple(t.shape)}" for i, t in enumerate(grads_p)]
+    grad_max = {n: float(t.abs().max()) for n, t in zip(names, grads_k)}
+    for n, t in zip(names, grads_k):
+        require(bool(torch.isfinite(t).all()), f"gradient {n} is not finite")
+    rel = {n: float((a - b).norm() / b.norm())
+           for n, a, b in zip(names, grads_k, grads_p)}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    require(loss_rel <= RTOL, f"first microbatch loss {loss_k} vs plain "
+                              f"{loss_p}: relative {loss_rel}")
+    for n, r in rel.items():
+        require(r <= GRAD_RTOL, f"gradient {n}: relative error {r} in the norm")
+    del grads_k, grads_p, batch
+
+    # the main path: 3 steps from the seeded init, counts read around them
+    pipe.seek(0)
+    before = [t.detach().clone() for t in tree_leaves(state["params"])]
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = pipe.step_fn(state, step)
+        torch.cuda.synchronize()
+        steps.append({"step": step, "loss": loss,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for name in TRAINING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} never launched on the "
+                                    "training path")
+    per_micro = TRAIN_STEPS * k * TRAIN_LAYERS
+    require(launches["hadamard_spmm"] == per_micro * 6
+            and launches["spmm_csr"] == per_micro * 4,
+            f"unexpected training launches {launches}")
+    require(all(np.isfinite(s["loss"]) for s in steps), "non-finite loss")
+    after = tree_leaves(state["params"])
+    require(all(bool(torch.isfinite(t).all()) for t in after),
+            "non-finite params after training")
+    changed = [not torch.equal(a, b) for a, b in zip(after, before)]
+    require(all(changed), "a parameter did not change")
+    emit({"phase": "train", "arch": "ngcf", "config": "ngcf-3l-128e",
+          "layers": TRAIN_LAYERS,
+          "target_batch": TARGET_BATCH, "microbatch": MICROBATCH,
+          "microbatches_per_step": k, "optimizer": "adam",
+          "lr": pipe.lr_for_epoch(0), "setup_s": setup_s, "steps": steps,
+          "forward_ms_per_microbatch": fwd_ms,
+          "backward_ms_per_microbatch": bwd_ms,
+          "plain_forward_ms": pf, "plain_backward_ms": pb,
+          "peak_memory_bytes": peak,
+          "first_microbatch_loss": loss_k, "plain_loss": loss_p,
+          "loss_rel_err": loss_rel, "grad_rel_err_norm": rel,
+          "grad_max_abs": grad_max,
+          "grad_tolerance": f"relative error in the norm <= {GRAD_RTOL} "
+                            "per leaf; loss rtol " + str(RTOL),
+          "launches": launches})
+    return launches, pipe, (before[0], before[1])
+
+
+def hadamard_bound(torch, x, y, indptr, x_idx, y_idx, n) -> tuple[float, float]:
+    """(bytes, flops) the call must move and do: each distinct gathered row
+    read once, indices, row pointers and the output once; 2 flops per
+    gathered pair."""
+    d = x.shape[1]
+    rows = int(torch.unique(x_idx).numel()) * d * 4
+    rows += int(torch.unique(y_idx).numel()) * d * 4
+    idx = x_idx.numel() * 4 * (1 if y_idx is x_idx else 2)
+    return rows + idx + indptr.numel() * 8 + n * d * 4, 2.0 * x_idx.numel() * d
+
+
+def time_hadamard(torch, pipe, params, errs):
+    """``hadamard_spmm`` at the training path's shapes, on layer-0 inputs:
+    the forward pair of one NGCF layer and the two backward calls of
+    ``hadamard_agg_item``; kernel, plain general version, the plain
+    structured route, and a two-call library yardstick."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hadamard_spmm import hadamard_spmm_plain
+    g = pipe.g
+    dev = g.device
+    xu, xi = params
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ct = torch.randn((N_ITEMS, EMBED_DIM), generator=gen, device=dev)
+    calls = {
+        "forward": [
+            ("hadamard_agg_item", (xu, xi, g.ui_indptr, g.ui_src, g.ui_dst,
+                                   N_ITEMS), "y_is_dst"),
+            ("hadamard_agg_user", (xi, xu, g.iu_indptr, g.iu_src, g.iu_dst,
+                                   N_USERS), "y_is_dst")],
+        "backward": [
+            ("d_x of hadamard_agg_item", (ct, xi, g.iu_indptr, g.iu_src,
+                                          g.iu_src, N_USERS), "x_eq_y"),
+            ("d_y of hadamard_agg_item", (xu, ct, g.ui_indptr, g.ui_src,
+                                          g.ui_dst, N_ITEMS), "y_is_dst")],
+    }
+    out = {}
+    for part, group in calls.items():
+        tot = dict(ms=0.0, plain_ms=0.0, structured_ms=0.0, yardstick_ms=0.0,
+                   bytes=0.0, flops=0.0)
+        per_call = []
+        for name, args, structure in group:
+            x, y, ip, xi_, yi_, n = args
+            got = ops.hadamard_spmm(*args, impl="cuda")
+            want = ref.hadamard_spmm_ref(*args)
+            abs_sum = ref.hadamard_spmm_ref(x.abs(), y.abs(), ip, xi_, yi_, n)
+            errs["hadamard_spmm"] = max(errs["hadamard_spmm"], close_sum(
+                torch, got, want, abs_sum, f"hadamard_spmm {name}"))
+            del got, want, abs_sum
+            t_k = cuda_ms(torch, lambda: ops.hadamard_spmm(*args, impl="cuda"),
+                          reps=3, warmup=1)
+            t_p = cuda_ms(torch, lambda: ref.hadamard_spmm_ref(*args),
+                          reps=2, warmup=1)
+            t_s = cuda_ms(torch, lambda: hadamard_spmm_plain(
+                *args, structure=structure), reps=3, warmup=1)
+            with warnings.catch_warnings():     # beta-state notices only
+                warnings.simplefilter("ignore", UserWarning)
+                a = torch.sparse_csr_tensor(ip, xi_.long(),
+                                            torch.ones(xi_.numel(), device=dev),
+                                            size=(n, x.shape[0]))
+            if structure == "y_is_dst":
+                yard = "torch.sparse.mm(A, x) * y"
+                t_y = cuda_ms(torch, lambda: torch.sparse.mm(a, x) * y, reps=3)
+            else:
+                yard = "torch.sparse.mm(A, x * y)"
+                t_y = cuda_ms(torch, lambda: torch.sparse.mm(a, x * y), reps=3)
+            del a
+            b, f = hadamard_bound(torch, *args)
+            b_ms, b_by = bound(b, f)
+            per_call.append({"call": name, "n_dst": n, "edges": int(xi_.numel()),
+                             "ms": t_k, "plain_ms": t_p,
+                             "structured_plain_ms": t_s, "structure": structure,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "two_call_yardstick": yard, "yardstick_ms": t_y})
+            for key, v in (("ms", t_k), ("plain_ms", t_p), ("structured_ms", t_s),
+                           ("yardstick_ms", t_y), ("bytes", b), ("flops", f)):
+                tot[key] += v
+        b_ms, b_by = bound(tot["bytes"], tot["flops"])
+        out[part] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"],
+                         structured_plain_ms=tot["structured_ms"],
+                         yardstick_ms=tot["yardstick_ms"], bound_ms=b_ms,
+                         bound_by=b_by, per_call=per_call)
+    return out
+
+
 def main() -> int:
     torch = setup()
     build()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    with torch.inference_mode():
+    # no_grad, not inference_mode: the training phase reuses the graph's
+    # data and autograd cannot save inference tensors
+    with torch.no_grad():
         errs = {"spmm_csr": check_spmm(torch, dev, rng),
                 "embedding_bag": check_embedding_bag(torch, dev, rng),
-                "fused_topk_score": check_topk(torch, dev, rng)}
+                "fused_topk_score": check_topk(torch, dev, rng),
+                "hadamard_spmm": check_hadamard(torch, dev, rng)}
         emit({"phase": "adversarial", "max_abs_err": errs})
-        g, test = build_graph(torch, dev)
+        g, train, test = build_graph(torch, dev)
         from repro_torch.pipeline import get_model
         params = get_model("lightgcn").init(SEED, N_USERS, N_ITEMS, EMBED_DIM,
                                             N_LAYERS, device=dev)
-        user_f, item_f, launches, eval_users = main_path(torch, g, test,
-                                                         params)
+        user_f, item_f, serve_launches, eval_users = main_path(torch, g, test,
+                                                               params)
         times = time_kernels(torch, g, params, user_f, item_f, eval_users,
                              errs)
+    del g, params, user_f, item_f
+    torch.cuda.empty_cache()
+    train_launches, pipe, layer0 = train_path(torch, dev, train)
+    with torch.no_grad():
+        had = time_hadamard(torch, pipe, layer0, errs)
+    per_step = train_launches["hadamard_spmm"] / TRAIN_STEPS
+    for part, rec in had.items():
+        emit({"kernel": "hadamard_spmm", "part": part, "kernel_ms": rec["ms"],
+              **{k: v for k, v in rec.items() if k != "ms"},
+              "launches_per_training_step": per_step,
+              "work": f"layer 0, D={EMBED_DIM}, {train.n_edges} edges",
+              "max_abs_err": errs["hadamard_spmm"],
+              "tolerance": TOLERANCE["hadamard_spmm"]})
+    times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
+    paths = {"serving": {k: serve_launches[k] for k in SERVING_KERNELS},
+             "training": {k: train_launches[k] for k in TRAINING_KERNELS}}
+    emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": sum(p.get(name, 0) for p in paths.values()),
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],

@@ -1,5 +1,5 @@
 """Weights across: the reference's params as numpy arrays -> the port's
-tensors, so both packages can run from one state."""
+tensors and back, so both packages can run from one state."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,16 +8,36 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def params_from_jax(params: dict, device="cuda") -> dict[str, torch.Tensor]:
-    """{'user_embed', 'item_embed', ...} of numpy arrays (e.g.
-    ``{k: np.asarray(v) for k, v in run.params.items()}``) -> float32
-    tensors on ``device``.  Only array leaves are taken (LightGCN's)."""
+def params_from_jax(params, device="cuda"):
+    """Nested dicts and lists of float arrays (e.g. the reference's
+    ``pipe.init_state()["params"]`` through ``np.asarray``) -> the same
+    structure of float32 tensors on ``device``.  NGCF's ``w1``/``w2``
+    lists and GCN's ``layers`` list of dicts keep their layout."""
     dev = resolve_device(device)
-    out = {}
-    for name, value in params.items():
+
+    def leaf(path, value):
         arr = np.asarray(value)
         if arr.dtype.kind != "f":
-            raise TypeError(f"param {name!r} is not a float array "
+            raise TypeError(f"param {path!r} is not a float array "
                             f"(dtype {arr.dtype})")
-        out[name] = torch.from_numpy(np.array(arr, np.float32)).to(dev)
-    return out
+        return torch.from_numpy(np.array(arr, np.float32)).to(dev)
+
+    def walk(path, value):
+        if isinstance(value, dict):
+            return {k: walk(f"{path}.{k}" if path else k, v)
+                    for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return [walk(f"{path}[{i}]", v) for i, v in enumerate(value)]
+        return leaf(path, value)
+
+    return walk("", params)
+
+
+def params_to_numpy(params):
+    """The inverse: nested dicts and lists of tensors -> numpy arrays in
+    the same structure (host copies)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    return params.detach().cpu().numpy()

@@ -1,1 +1,2 @@
-"""Model pieces: LightGCN init and the user-CSR helper."""
+"""Model pieces: LightGCN and NGCF init, BPR loss and sampling, the
+large-batch schedule."""

@@ -3,6 +3,7 @@ PyTorch version (``ref``), routed by ``ops``."""
 from __future__ import annotations
 
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.hadamard_spmm import hadamard_spmm_cuda
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import fused_topk_score_cuda
 
@@ -10,6 +11,7 @@ WRAPPERS = {
     "spmm_csr": spmm_csr_cuda,
     "embedding_bag": embedding_bag_cuda,
     "fused_topk_score": fused_topk_score_cuda,
+    "hadamard_spmm": hadamard_spmm_cuda,
 }
 
 

@@ -26,11 +26,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "spmm_csr": {
         "spmm_csr_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "hadamard_spmm": {
+        "hadamard_spmm_f32": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I,
+                              _I, _P),
     },
     "embedding_bag": {
         "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.hadamard_spmm import (STRUCTURES, hadamard_spmm_cuda,
+                                               hadamard_spmm_plain)
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import fused_topk_score_cuda
 
@@ -36,6 +38,24 @@ def spmm_csr(reduce, values, indptr, src_sorted, n_nodes, gather=False,
                                  gather=gather)
     return spmm_csr_cuda(reduce, values, indptr, src_sorted, n_nodes,
                          gather=gather)
+
+
+def hadamard_spmm(x, y, indptr, x_idx, y_idx, n_nodes, scale=None,
+                  slope=None, structure="general", impl=None):
+    """Fused gather-Hadamard-aggregate: out[v] = sum_{e: dst_e = v}
+    x[x_idx_e] * y[y_idx_e] with an optional (scale, leaky-relu)
+    epilogue.  ``structure`` is the caller-asserted index invariant the
+    plain route factors by; the CUDA kernel runs the general form on
+    ``x_idx``/``y_idx`` whatever it says."""
+    if structure not in STRUCTURES:
+        raise ValueError(f"structure must be one of {STRUCTURES}, "
+                         f"got {structure!r}")
+    if route(impl, x) == "torch":
+        return hadamard_spmm_plain(x, y, indptr, x_idx, y_idx, n_nodes,
+                                   scale=scale, slope=slope,
+                                   structure=structure)
+    return hadamard_spmm_cuda(x, y, indptr, x_idx, y_idx, n_nodes,
+                              scale=scale, slope=slope)
 
 
 def embedding_bag(table, ids, mask, combiner="sum", impl=None):

@@ -40,6 +40,32 @@ def spmm_csr_ref(reduce: str, values: torch.Tensor, indptr: torch.Tensor,
     return torch.where(torch.isfinite(out), out, 0.0)
 
 
+def hadamard_spmm_ref(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
+                      x_idx: torch.Tensor, y_idx: torch.Tensor, n_nodes: int,
+                      scale: torch.Tensor | None = None,
+                      slope: float | None = None) -> torch.Tensor:
+    """Naive gather -> Hadamard -> scatter-sum: out[v] = sum over e in
+    [indptr[v], indptr[v+1]) of x[x_idx[e]] * y[y_idx[e]], then
+    ``* scale[:, None]`` and the leaky-relu ``v >= 0 ? v : v * slope``.
+    It forms the [E, D] product the kernel avoids: a parity oracle only."""
+    dev = x.device
+    e = x_idx.shape[0]
+    indptr = indptr.to(dev, torch.int64)
+    dst = torch.searchsorted(indptr, torch.arange(e, device=dev),
+                             right=True) - 1
+    msgs = x.float()[x_idx.to(dev).long()] * y.float()[y_idx.to(dev).long()]
+    if e and int(dst[-1]) >= n_nodes:        # edges past the last row drop
+        keep = dst < n_nodes
+        dst, msgs = dst[keep], msgs[keep]
+    out = torch.zeros((n_nodes, x.shape[-1]), dtype=torch.float32, device=dev)
+    out.index_add_(0, dst, msgs)
+    if scale is not None:
+        out = out * scale[:, None]
+    if slope is not None:
+        out = torch.where(out >= 0, out, out * slope)
+    return out
+
+
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       mask: torch.Tensor, combiner: str = "sum") -> torch.Tensor:
     """out[b] = sum_l mask[b, l] * table[ids[b, l]]; 'mean' divides by
