@@ -7,7 +7,7 @@ Run from the repo root on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at
      adversarial shapes and at the main paths' shapes, and time kernel,
@@ -18,14 +18,22 @@ Phases (any failure exits non-zero before the last line is printed):
      -> seeded init -> forward -> Recommender -> RecommenderService
      serving 1,024 Zipf-drawn requests -> held-out evaluation, with every
      response checked and the serving kernels' launch counts read;
-  5. drive the training path at the NGCF FULL width
+  5. drive ANN serving over tiered tables on the same final embeddings
+     and the same 1,024 requests (``ann_serving``): device tables with
+     keep_frac 1.0 (bitwise equal to the exact responses) and 0.125;
+     both tables demoted to pinned host memory on ``h100-hbm-host``
+     behind a 4,096-row hot-row cache (bitwise equal to the device
+     tables on the same batches); the same with the int8 store (held
+     against the plain route on a sample); plus the pinned host-to-device
+     bandwidth;
+  6. drive the training path at the NGCF FULL width
      (``src/repro/configs/ngcf.py:21``: the same users, items and D,
      target batch 150,528) on the same graph, with depth cut from 3 to 2
      layers (see TRAIN_LAYERS): Pipeline.step_fn for 3 Adam steps of 2
      accumulated microbatches each, fused Hadamard route; the first
      microbatch's loss and gradients held against the plain route, and
      the training kernels' launch counts read;
-  6. print ``{"kernels": [...]}`` and, last, the device line.
+  7. print ``{"kernels": [...]}`` and, last, the device line.
 Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
 from __future__ import annotations
@@ -52,6 +60,12 @@ MAX_BATCH, MAX_WAIT_US, N_REQUESTS, ARRIVAL_US = 64, 1_000, 1_024, 50
 N_EVAL_USERS = 16_384
 N_SAMPLE = 256
 RTOL = ATOL = 1e-5         # fp32 sums in another order than the plain version
+# ANN serving: index blocks of 64 items (832 blocks), 104 kept at 0.125
+ANN_BLOCK, KEEP_PRUNED, CACHE_ROWS = 64, 0.125, 4096
+ANN_TOPOLOGY = "h100-hbm-host"
+BOTH_SLOW = {"serve/user_embed": "slow", "serve/item_embed": "slow"}
+N_SAMPLE_BATCHES = 8
+H2D_BYTES = 256 << 20
 # NGCF FULL training: target batch 150,528 in 2 microbatches, 3 steps
 TARGET_BATCH, MICROBATCH, TRAIN_STEPS = 150_528, 75_264, 3
 # Depth cut: the reference's NGCF sums messages without degree
@@ -75,6 +89,8 @@ TOLERANCE = {
     "hadamard_spmm": "bitwise on integer-valued inputs; adversarial: "
                      f"allclose rtol={RTOL} atol={ATOL}; main: |err| <= "
                      f"{ATOL} + {RTOL} * sum of |terms| per element",
+    "ann_block_scores": "bitwise on integer-valued users (radius on and "
+                        f"off); else allclose rtol={RTOL} atol={ATOL}",
 }
 
 KERNELS = {
@@ -86,9 +102,12 @@ KERNELS = {
                          "src/repro/kernels/topk_score.py:90"),
     "hadamard_spmm": ("src/repro_torch/kernels/csrc/hadamard_spmm.cu",
                       "src/repro/kernels/hadamard_spmm.py:106"),
+    "ann_block_scores": ("src/repro_torch/kernels/csrc/ann_block_scores.cu",
+                         "src/repro/kernels/ann.py:41"),
 }
 # the kernels each main path runs
 SERVING_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
+ANN_KERNELS = ("embedding_bag", "fused_topk_score", "ann_block_scores")
 TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
 
 
@@ -368,6 +387,34 @@ def check_hadamard(torch, dev, rng) -> float:
     return worst
 
 
+def check_ann(torch, dev, rng) -> float:
+    """Ragged B, nb and D, nb = 1, the service batch and a whole-sweep B
+    against 832 blocks; radius on and off; integer-valued users bitwise."""
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for b, nb, d in [(1, 1, 8), (7, 13, 37), (64, 130, 128), (37, 1, 100),
+                     (64, 832, 128), (16_384, 832, 128)]:
+        for integer in (True, False):
+            ue = rng.integers(-3, 4, (b, d)) if integer \
+                else rng.standard_normal((b, d))
+            args = [torch.from_numpy(a).to(dev) for a in (
+                ue.astype(np.float32),
+                rng.integers(-127, 128, (nb, d)).astype(np.int8),
+                (rng.random(nb) / 50).astype(np.float32),
+                rng.random(nb).astype(np.float32))]
+            for radius in (args[3], torch.zeros_like(args[3])):
+                got = ops.ann_block_scores(*args[:3], radius, impl="cuda")
+                want = ref.ann_block_scores_ref(*args[:3], radius)
+                torch.cuda.synchronize()
+                what = f"ann_block_scores B={b} nb={nb} d={d}"
+                if integer:
+                    require(torch.equal(got, want),
+                            f"{what}: not bitwise on integers")
+                else:
+                    worst = max(worst, close(torch, got, want, what))
+    return worst
+
+
 # ------------------------------------------------------------------ phase 4
 def build_graph(torch, dev):
     from repro_torch.data import synth
@@ -523,8 +570,9 @@ def forward(torch, g, params, model, layer_ms):
         del g.sym_propagate
 
 
-def check_responses(torch, responses, users, rec, seen_ip, seen_it):
-    from repro_torch.eval.topk import streaming_topk
+def check_valid(responses, users, seen_ip, seen_it) -> None:
+    """Every request answered in order with K valid, unique, unseen ids in
+    (score desc, id asc) order and finite scores."""
     require(len(responses) == len(users), "lost requests")
     require([r.user_id for r in responses] == [int(u) for u in users],
             "responses out of order")
@@ -533,11 +581,18 @@ def check_responses(torch, responses, users, rec, seen_ip, seen_it):
         require(ids.shape == (K,) and ((ids >= 0) & (ids < N_ITEMS)).all(),
                 f"user {r.user_id}: not {K} valid ids")
         require(len(np.unique(ids)) == K, f"user {r.user_id}: repeated ids")
-        require(np.isfinite(scores).all() and (np.diff(scores) <= 0).all(),
-                f"user {r.user_id}: scores not finite and non-increasing")
+        ordered = (scores[:-1] > scores[1:]) | (
+            (scores[:-1] == scores[1:]) & (ids[:-1] < ids[1:]))
+        require(np.isfinite(scores).all() and ordered.all(),
+                f"user {r.user_id}: not finite, in (score desc, id asc)")
         seen = seen_it[seen_ip[r.user_id]:seen_ip[r.user_id + 1]]
         require(not np.isin(ids, seen).any(),
                 f"user {r.user_id}: recommended a seen item")
+
+
+def check_responses(torch, responses, users, rec, seen_ip, seen_it):
+    from repro_torch.eval.topk import streaming_topk
+    check_valid(responses, users, seen_ip, seen_it)
     # a sample against the plain route on the card
     sample, first = [], {}
     for r in responses:
@@ -639,10 +694,251 @@ def main_path(torch, g, test, params):
           "checked_responses": len(responses), "sample_vs_plain": n_sample,
           "sample_near_tie_id_swaps": excused, "main_path_s": total_s,
           "launches": launches})
-    return user_f, item_f, launches, eval_users
+    return user_f, item_f, launches, eval_users, responses, users
 
 
 # ------------------------------------------------------------------ phase 5
+class Recording:
+    """A Recommender as the service sees it, keeping every batch it is
+    asked for with its answer (to replay the same batches elsewhere)."""
+
+    def __init__(self, rec):
+        self.rec, self.k, self.batches = rec, rec.k, []
+
+    def recommend(self, user_ids, k=None):
+        ids, scores = self.rec.recommend(user_ids, k=k)
+        self.batches.append((np.array(user_ids), ids, scores))
+        return ids, scores
+
+    def cache_stats(self):
+        return self.rec.cache_stats()
+
+    def describe(self):
+        return self.rec.describe()
+
+
+def serve_requests(torch, rec, users):
+    """The main path's 1,024 requests through a ``RecommenderService`` under
+    a ``ManualClock``; returns (responses, stats, recorded batches,
+    wall seconds).  Batches depend on each batch's measured compute."""
+    from repro_torch.serving import ManualClock, RecommenderService
+    rr = Recording(rec)
+    clock = ManualClock()
+    svc = RecommenderService(rr, max_batch=MAX_BATCH, max_wait_us=MAX_WAIT_US,
+                             clock=clock)
+    responses = []
+    t0 = time.perf_counter()
+    for uid in users:
+        clock.advance(ARRIVAL_US)
+        svc.submit(int(uid))
+        responses.extend(svc.poll())
+    responses.extend(svc.drain())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = svc.stats()
+    require(stats["completed"] == len(users) and stats["rejected"] == 0,
+            "service dropped requests")
+    return responses, stats, rr.batches, wall
+
+
+def replay_equal(rec, batches, what: str) -> None:
+    """``rec`` answers every recorded batch bit for bit as recorded."""
+    for uids, ids, scores in batches:
+        got_ids, got_scores = rec.recommend(uids)
+        require(np.array_equal(got_ids, ids)
+                and np.array_equal(got_scores, scores),
+                f"{what}: a batch differs bitwise")
+
+
+def selection_differs(torch, rec, uids) -> bool:
+    """Whether the kernel's and the plain version's affinities keep
+    different blocks for this batch (a near-tie at the cut)."""
+    from repro_torch.eval.recommender import _served_rows
+    index = rec.ann_index
+    ue = torch.from_numpy(_served_rows(rec.user_e)[uids]).to(index.device)
+    kept = [index.select_blocks(index.block_affinity(ue, len(uids), impl),
+                                rec.keep_frac) for impl in ("cuda", "torch")]
+    return not np.array_equal(*kept)
+
+
+def ann_serving(torch, g, user_f, item_f, users, exact):
+    """Four runs over the main path's final embeddings and requests; each
+    run's launches are counted from 0 around its service drive only."""
+    from repro_torch import kernels
+    from repro_torch.eval import Recommender
+    from repro_torch.memory import HostResident, HotRowCache, get_topology
+    from repro_torch.serving import recall_against
+    seen_ip, seen_it = g.seen_csr()
+    base = dict(seen_indptr=seen_ip, seen_items=seen_it, k=K,
+                item_block=ITEM_BLOCK, user_batch=USER_BATCH, device=g.device,
+                ann=True, ann_block=ANN_BLOCK, topology=ANN_TOPOLOGY)
+    runs = {
+        "device_keep_all": dict(keep_frac=1.0),
+        "device_pruned": dict(keep_frac=KEEP_PRUNED),
+        "tiered_fp32": dict(keep_frac=KEEP_PRUNED, pins=BOTH_SLOW,
+                            cache_rows=CACHE_ROWS),
+        "tiered_int8": dict(keep_frac=KEEP_PRUNED, pins=BOTH_SLOW,
+                            cache_rows=CACHE_ROWS, embed_store="int8"),
+    }
+    total = {name: 0 for name in KERNELS}
+    recs, out = {}, {}
+    for name, knobs in runs.items():
+        t0 = time.perf_counter()
+        rec = Recommender(user_f, item_f, **base, **knobs)
+        build_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        responses, stats, batches, wall = serve_requests(torch, rec, users)
+        launches = kernels.launch_counts()
+        for k_, v in launches.items():
+            total[k_] += v
+        require(launches["ann_block_scores"] > 0,
+                f"{name}: ann_block_scores never launched")
+        check_valid(responses, users, seen_ip, seen_it)
+        rec_out = {"phase": "ann_serving", "run": name, **knobs,
+                   "requests": len(users), "batches": stats["batches"],
+                   "service_p50_us": stats["service_p50_us"],
+                   "service_p99_us": stats["service_p99_us"],
+                   "total_p50_us": stats["total_p50_us"],
+                   "total_p99_us": stats["total_p99_us"],
+                   "serve_wall_s": wall, "recommender_build_s": build_s,
+                   "index_build_s": rec.index_build_s,
+                   "index_nbytes": rec.ann_index.nbytes,
+                   "kept_blocks": rec.ann_index.n_keep(rec.keep_frac),
+                   "n_blocks": rec.ann_index.n_blocks,
+                   "launches": launches}
+        ids = np.stack([r.ids for r in responses])
+        if name == "device_keep_all":
+            want_i = np.stack([r.ids for r in exact])
+            want_s = np.stack([r.scores for r in exact])
+            require(np.array_equal(ids, want_i) and np.array_equal(
+                np.stack([r.scores for r in responses]), want_s),
+                    "keep_frac=1.0 is not bitwise equal to the exact responses")
+            rec_out["bitwise_equal_to"] = "main_path exact responses"
+        elif name == "device_pruned":
+            # each returned score against the plain u·x on the card
+            sample = responses[:N_SAMPLE]
+            u = torch.from_numpy(np.array([r.user_id for r in sample])).to(
+                g.device).long()
+            i = torch.from_numpy(np.stack([r.ids for r in sample])).to(
+                g.device).long()
+            plain = (user_f[u][:, None, :] * item_f[i]).sum(-1).cpu().numpy()
+            got = np.stack([r.scores for r in sample])
+            require(np.allclose(got, plain, rtol=RTOL, atol=ATOL),
+                    "pruned scores differ from the plain u·x")
+            rec_out["recall_at_20_vs_keep_all"] = recall_against(
+                out["device_keep_all"]["ids"], ids)
+            rec_out["score_max_abs_err_vs_plain"] = float(
+                np.abs(got - plain).max())
+        else:
+            plan_ok = rec.n_offloaded == 2 and all(
+                isinstance(t, HotRowCache) and isinstance(t.backing,
+                                                          HostResident)
+                for t in (rec.user_e, rec.item_e))
+            require(plan_ok, f"{name}: tables not demoted behind caches")
+            backing = rec.item_e.backing
+            host = backing.q if knobs.get("embed_store") == "int8" \
+                else backing.arr
+            require(host.is_pinned(), f"{name}: host store not pinned")
+            rec_out["cache"] = {
+                n.split("/")[-1]: {key: st[key] for key in (
+                    "hit_rate", "hits", "misses", "bytes_streamed", "fills",
+                    "evictions")} for n, st in rec.cache_stats().items()}
+            rec_out["link_bytes"] = {
+                "user_embed": rec.user_e.link_bytes,
+                "item_embed": rec.item_e.link_bytes}
+        rec_out["describe"] = rec.describe()
+        out[name] = {"ids": ids, "batches": batches, "emit": rec_out}
+        recs[name] = rec
+        if name == "tiered_fp32":
+            # every batch of this run answered by the device tables
+            replay_equal(recs["device_pruned"], batches,
+                         "tiered fp32 vs device tables")
+            rec_out["bitwise_equal_to"] = "device_pruned on the same batches"
+        if name == "tiered_int8":
+            plain = Recommender(user_f, item_f, **base, **knobs, impl="torch")
+            excused = flips = 0
+            for uids, b_ids, b_scores in batches[:N_SAMPLE_BATCHES]:
+                p_ids, p_scores = plain.recommend(uids)
+                try:
+                    excused += topk_agree(b_scores, b_ids, p_scores, p_ids,
+                                          "tiered int8 vs plain route")
+                except SmokeFailure:
+                    require(selection_differs(torch, rec, uids),
+                            "tiered int8 differs from the plain route "
+                            "with the same blocks kept")
+                    flips += 1
+            rec_out.update(sample_batches_vs_plain=min(N_SAMPLE_BATCHES,
+                                                       len(batches)),
+                           sample_near_tie_id_swaps=excused,
+                           sample_selection_near_ties=flips)
+            del plain
+        emit(rec_out)
+    # the capacity tier's saving: bytes over the host link, int8 vs fp32
+    link = {n: sum(out[n]["emit"]["link_bytes"].values())
+            for n in ("tiered_fp32", "tiered_int8")}
+    h2d = pinned_h2d(torch, g.device)
+    emit({"phase": "ann_serving", "link_bytes_fp32": link["tiered_fp32"],
+          "link_bytes_int8": link["tiered_int8"],
+          "int8_link_saving": 1 - link["tiered_int8"] / link["tiered_fp32"],
+          "pinned_h2d_GBps": h2d,
+          "topology_host_read_GBps": get_topology(ANN_TOPOLOGY).slow.read_bw
+          / 1e9, "h2d_bytes": H2D_BYTES, "launches": total})
+    return total, recs["device_pruned"].ann_index
+
+
+def pinned_h2d(torch, dev) -> float:
+    """One 256 MB pinned host-to-device copy, CUDA events (best of 3)."""
+    src = torch.empty(H2D_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(H2D_BYTES, dtype=torch.uint8, device=dev)
+    best = float("inf")
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop))
+    return H2D_BYTES / (best * 1e-3) / 1e9
+
+
+def time_ann(torch, index, user_f, users, errs):
+    """``ann_block_scores`` at the serving shape: one full service batch of
+    64 users against the 832-block index (the affinity launch), kernel,
+    plain version and a one-matmul yardstick over dequantized centroids."""
+    from repro_torch.kernels import ops, ref
+    dev = user_f.device
+    u = torch.from_numpy(np.asarray(users[:MAX_BATCH])).to(dev).long()
+    ue = user_f[u].contiguous()
+    args = (ue, index._cq_dev, index._scale_dev)
+    for radius in (index._zero_dev, index._radius_dev):
+        got = ops.ann_block_scores(*args, radius, impl="cuda")
+        want = ref.ann_block_scores_ref(*args, radius)
+        errs["ann_block_scores"] = max(errs["ann_block_scores"], close(
+            torch, got, want, "ann_block_scores main"))
+    zero = index._zero_dev
+    t_k = cuda_ms(torch, lambda: ops.ann_block_scores(*args, zero,
+                                                      impl="cuda"), reps=100)
+    t_p = cuda_ms(torch, lambda: ref.ann_block_scores_ref(*args, zero),
+                  reps=100)
+    cent = index._cq_dev.float()
+    t_l = cuda_ms(torch, lambda: torch.matmul(ue, cent.T), reps=100)
+    b, d = ue.shape
+    nb = index.n_blocks
+    b_ms, b_by = bound(b * d * 4 + nb * d + nb * 8 + b * nb * 4,
+                       2.0 * b * nb * d + 3.0 * b * nb + 2.0 * b * d)
+    rec = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+               bound_by=b_by, work=f"B={b} nb={nb} D={d} (one service batch)",
+               yardstick="torch.matmul(ue, float(centroids_q).T)")
+    emit({"kernel": "ann_block_scores", "kernel_ms": t_k,
+          **{k: v for k, v in rec.items() if k != "ms"},
+          "max_abs_err": errs["ann_block_scores"],
+          "tolerance": TOLERANCE["ann_block_scores"]})
+    return rec
+
+
+# ------------------------------------------------------------------ phase 6
+
 def value_and_grad_timed(torch, pipe, params, batch):
     """One microbatch's (loss, grads) as ``Pipeline.value_and_grad`` takes
     them, with forward and backward timed apart (host clock around
@@ -854,17 +1150,22 @@ def main() -> int:
         errs = {"spmm_csr": check_spmm(torch, dev, rng),
                 "embedding_bag": check_embedding_bag(torch, dev, rng),
                 "fused_topk_score": check_topk(torch, dev, rng),
-                "hadamard_spmm": check_hadamard(torch, dev, rng)}
+                "hadamard_spmm": check_hadamard(torch, dev, rng),
+                "ann_block_scores": check_ann(torch, dev, rng)}
         emit({"phase": "adversarial", "max_abs_err": errs})
         g, train, test = build_graph(torch, dev)
         from repro_torch.pipeline import get_model
         params = get_model("lightgcn").init(SEED, N_USERS, N_ITEMS, EMBED_DIM,
                                             N_LAYERS, device=dev)
-        user_f, item_f, serve_launches, eval_users = main_path(torch, g, test,
-                                                               params)
+        user_f, item_f, serve_launches, eval_users, exact, users = \
+            main_path(torch, g, test, params)
+        ann_launches, index = ann_serving(torch, g, user_f, item_f, users,
+                                          exact)
         times = time_kernels(torch, g, params, user_f, item_f, eval_users,
                              errs)
-    del g, params, user_f, item_f
+        times["ann_block_scores"] = time_ann(torch, index, user_f, users,
+                                             errs)
+    del g, params, user_f, item_f, index
     torch.cuda.empty_cache()
     train_launches, pipe, layer0 = train_path(torch, dev, train)
     with torch.no_grad():
@@ -879,6 +1180,7 @@ def main() -> int:
               "tolerance": TOLERANCE["hadamard_spmm"]})
     times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
     paths = {"serving": {k: serve_launches[k] for k in SERVING_KERNELS},
+             "ann_serving": {k: ann_launches[k] for k in ANN_KERNELS},
              "training": {k: train_launches[k] for k in TRAINING_KERNELS}}
     emit({"launches_by_path": paths})
     rows = []

@@ -8,11 +8,20 @@ Users are scored in batches against item blocks:
   * already-seen train items are masked through the user-CSR, padded per
     batch to the batch's largest degree (the reference pads to the
     largest degree among all queried users; both give the same result);
-  * the fused route (the default: both tables live on the device) runs
-    one ``kernels.ops.fused_topk_score`` launch per user batch;
-  * the block-major route (``fused=False``) stages every batch once, then
-    gathers each item block once and merges it into every batch's
-    running top-K with the plain PyTorch merge.
+  * the fused route (the default whenever the item table lives on the
+    device) runs one ``kernels.ops.fused_topk_score`` launch per user
+    batch;
+  * the block-major route (``fused=False``, and always for an item table
+    demoted to the host store) stages every batch once, then gathers
+    each item block once and merges it into every batch's running top-K
+    with the plain PyTorch merge.
+
+A table demoted by the planner arrives as a ``memory.HostResident``
+facade (or its int8 arm, or a ``HotRowCache`` in front of either): its
+user rows come from ``take`` and its item blocks from ``block``, with the
+ids the reference passes (each user batch padded with user 0 to the batch
+size; the last item block padded with item 0), so the facades' counters
+equal the reference's.
 
 Tie-breaking contract (as the reference's): results are ordered by
 (score desc, item id asc); scores equal to zero count as +0.0; slots
@@ -28,6 +37,7 @@ import torch
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _ref
+from repro_torch.memory.executor import HostResident
 
 NEG_INF = float("-inf")
 DEFAULT_USER_BATCH = 256
@@ -83,23 +93,34 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
                    device=None):
     """Top-K items per user without materializing the U×I score matrix.
 
-    user_e, item_e: [U, D] / [I, D] tensors (both on one device), or
-      numpy arrays moved to ``device`` (default 'cuda').
+    user_e, item_e: [U, D] / [I, D] tensors (on one device), numpy arrays
+      moved to ``device`` (default 'cuda'), or ``HostResident`` facades
+      whose rows stream to their serving device.
     user_ids: which users to score (default: all rows of user_e).
     seen_indptr/seen_items: user-CSR of already-seen (train) items to
       exclude, by global user id (numpy or tensors).  None -> nothing
       excluded.
-    fused: None or True -> one fused kernel launch per user batch;
-      False -> the block-major sweep.  Both give the same result.
+    fused: None -> the fused kernel whenever the item table is on the
+      device, else the block-major sweep; True -> the fused kernel (a
+      host-resident item table raises); False -> the block-major sweep.
+      All routes give the same result.
     Returns (scores f32[n, k], ids i32[n, k]) numpy arrays, ordered by
     (score desc, id asc); invalid slots are (-inf, -1).
     """
-    if isinstance(user_e, torch.Tensor):
+    user_host = user_e if isinstance(user_e, HostResident) else None
+    item_host = item_e if isinstance(item_e, HostResident) else None
+    if user_host is not None:
+        dev = user_host.device
+    elif isinstance(user_e, torch.Tensor):
         dev = user_e.device
+    elif item_host is not None:
+        dev = item_host.device
     else:
         dev = resolve_device("cuda" if device is None else device)
-    user_e = to_device(user_e, dev, torch.float32).contiguous()
-    item_e = to_device(item_e, dev, torch.float32).contiguous()
+    if user_host is None:
+        user_e = to_device(user_e, dev, torch.float32).contiguous()
+    if item_host is None:
+        item_e = to_device(item_e, dev, torch.float32).contiguous()
     n_items = int(item_e.shape[0])
     n_users = int(user_e.shape[0])
     if user_ids is None:
@@ -108,7 +129,11 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
     validate_user_ids(user_ids, n_users)
     n_q = len(user_ids)
     k = int(k)
-    use_fused = True if fused is None else bool(fused)
+    if fused and item_host is not None:
+        raise ValueError(
+            "fused=True needs a device-resident item table (a host-demoted "
+            "table streams block-major)")
+    use_fused = item_host is None if fused is None else bool(fused)
     if n_q == 0 or n_items == 0:
         return (np.full((n_q, k), NEG_INF, np.float32),
                 np.full((n_q, k), -1, np.int32))
@@ -122,7 +147,13 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
 
     def stage_batch(lo):
         sel = users[lo:lo + ub]
-        ue = _gather_rows(user_e, sel, impl)
+        if user_host is not None:
+            # the reference gathers the batch padded with user 0
+            sel_np = user_ids[lo:lo + ub]
+            ue = user_host.take(np.pad(sel_np, (0, ub - len(sel_np))))
+            ue = ue[:len(sel_np)]
+        else:
+            ue = _gather_rows(user_e, sel, impl)
         if seen_indptr is not None:
             deg = seen_indptr[sel.long() + 1] - seen_indptr[sel.long()]
             seen, smask = _padded_seen(sel, seen_indptr, seen_items,
@@ -152,10 +183,13 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
                             torch.full((b, k), -1, dtype=torch.int32,
                                        device=dev)])
         for b0 in range(0, n_blocks * blk, blk):
-            ids = torch.arange(b0, b0 + blk, dtype=torch.int32, device=dev)
+            ids = np.arange(b0, b0 + blk)
             valid = ids < n_items
-            block_ids = torch.where(valid, ids, -1)
-            ie_blk = _gather_rows(item_e, torch.where(valid, ids, 0), impl)
+            block_ids = torch.from_numpy(
+                np.where(valid, ids, -1).astype(np.int32)).to(dev)
+            safe = np.where(valid, ids, 0)
+            ie_blk = item_host.block(safe) if item_host is not None \
+                else _gather_rows(item_e, torch.from_numpy(safe).to(dev), impl)
             for bt in batches:
                 scores = _ref.score_block(bt[0], ie_blk, block_ids, bt[1],
                                           bt[2], b0)

@@ -2,6 +2,7 @@
 PyTorch version (``ref``), routed by ``ops``."""
 from __future__ import annotations
 
+from repro_torch.kernels.ann import ann_block_scores_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.hadamard_spmm import hadamard_spmm_cuda
 from repro_torch.kernels.spmm import spmm_csr_cuda
@@ -12,6 +13,7 @@ WRAPPERS = {
     "embedding_bag": embedding_bag_cuda,
     "fused_topk_score": fused_topk_score_cuda,
     "hadamard_spmm": hadamard_spmm_cuda,
+    "ann_block_scores": ann_block_scores_cuda,
 }
 
 

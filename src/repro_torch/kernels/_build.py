@@ -40,6 +40,9 @@ SIGNATURES = {
     "embedding_bag": {
         "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
+    "ann_block_scores": {
+        "ann_block_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
     "topk_score": {
         "fused_topk_score_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _L, _I, _I, _I, _I, _I, _I, _P),

@@ -10,6 +10,7 @@ A kernel that fails to build or launch raises; nothing falls back.
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ann import ann_block_scores_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.hadamard_spmm import (STRUCTURES, hadamard_spmm_cuda,
                                                hadamard_spmm_plain)
@@ -74,3 +75,11 @@ def fused_topk_score(ue, table, seen, seen_mask, *, k, n_items,
                                          n_items=n_items)
     return fused_topk_score_cuda(ue, table, seen, seen_mask, k=k,
                                  n_items=n_items, item_block=item_block)
+
+
+def ann_block_scores(ue, centroids_q, scale, radius, impl=None):
+    """Per-block score bounds ``(u · float(ĉ_b)) · scale_b + ‖u‖₂ ·
+    radius_b`` over int8 block centroids: f32[B, nb]."""
+    if route(impl, ue) == "torch":
+        return _ref.ann_block_scores_ref(ue, centroids_q, scale, radius)
+    return ann_block_scores_cuda(ue, centroids_q, scale, radius)

@@ -81,6 +81,21 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def ann_block_scores_ref(ue: torch.Tensor, centroids_q: torch.Tensor,
+                         scale: torch.Tensor, radius: torch.Tensor
+                         ) -> torch.Tensor:
+    """Per-block score upper bounds ``(u · float(ĉ_b)) · scale_b + ‖u‖₂ ·
+    radius_b`` over int8 block centroids, in the reference's op order.
+    ue: f32[B, D]; centroids_q: i8[nb, D]; scale/radius: f32[nb] ->
+    f32[B, nb]."""
+    ue = ue.float()
+    cent = centroids_q.float()
+    dots = ue @ cent.T
+    dots = dots * scale[None, :].float()
+    unorm = torch.sqrt(torch.sum(ue * ue, dim=1, keepdim=True))
+    return dots + unorm * radius[None, :].float()
+
+
 def merge_topk(carry_s: torch.Tensor, carry_i: torch.Tensor,
                scores: torch.Tensor, ids: torch.Tensor, k: int):
     """First k of [carry | block] in (score desc, id asc) order.

@@ -1,0 +1,35 @@
+"""The memory-tier subsystem (the port of ``repro/memory``), serving half.
+
+  ``TierTopology`` / ``Tier``  — registered descriptions of the memory
+      system (the reference's presets and ``h100-hbm-host``);
+  ``PlacementPolicy`` registry — greedy knapsack, exact DP, the paper's
+      §6 ``paper-recipe`` pins, all-fast/all-slow baselines, by name;
+  ``TieredExecutor``           — makes a serving plan real: demoted
+      tables live in a host store behind the ``HostResident`` gather
+      facade (int8 in ``QuantizedHostResident``), optionally fronted by
+      a device-resident ``HotRowCache``.
+
+The training half (``TieredExecutor.place/fetch/commit`` and the
+planner's ``build_train_plan``) is ROADMAP A5.
+"""
+from repro_torch.memory.cache import CacheStats, HotRowCache
+from repro_torch.memory.executor import (HostResident, QuantizedHostResident,
+                                         TieredExecutor)
+from repro_torch.memory.policies import (Placement, PlacementPolicy, Plan,
+                                         get_policy, place_exact, place_greedy,
+                                         policy_names, register_policy)
+from repro_torch.memory.profiles import (AccessProfile, gnn_recsys_profiles,
+                                         quantized_table_bytes)
+from repro_torch.memory.topology import (Tier, TierTopology, get_topology,
+                                         register_topology, resolve_tier,
+                                         topology_names)
+
+__all__ = [
+    "Tier", "TierTopology", "get_topology", "register_topology",
+    "topology_names", "resolve_tier",
+    "AccessProfile", "gnn_recsys_profiles", "quantized_table_bytes",
+    "Placement", "Plan", "PlacementPolicy", "get_policy",
+    "register_policy", "policy_names", "place_greedy", "place_exact",
+    "TieredExecutor", "HostResident", "QuantizedHostResident",
+    "HotRowCache", "CacheStats",
+]

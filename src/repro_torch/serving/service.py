@@ -1,5 +1,7 @@
 """RecommenderService — the serving facade: queue → Recommender (the port
-of ``repro/serving/service.py``; the ANN stage comes with a later slice).
+of ``repro/serving/service.py``).  The Recommender answers each batch
+through the exact sweep or, with ``ann=True``, the block-pruned ANN
+index, over device or host-tiered tables.
 
 Single-user queries enter the ``RequestQueue`` (coalescing +
 backpressure), dispatched microbatches run through the ``Recommender``,

@@ -125,3 +125,62 @@ def test_ngcf_training_step_on_card_matches_plain_route(dev):
     assert launched["spmm_csr"] == 2 * 2 * 4
     assert abs(loss - loss_k) <= 1e-6 * abs(loss_k)
     assert not torch.equal(new["params"]["w1"][0], state["params"]["w1"][0])
+
+
+@pytest.mark.parametrize("b,nb,d", [(1, 1, 8), (7, 13, 37), (64, 130, 128),
+                                    (64, 832, 128), (16384, 832, 128)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_ann_block_scores_kernel_matches_plain(dev, b, nb, d, integer):
+    """Bitwise on integer-valued users (radius on and off), else to
+    rtol = atol = 1e-5; ragged B, nb and D, nb = 1, a whole-sweep B."""
+    rng = np.random.default_rng(b + nb + d)
+    ue = rng.integers(-3, 4, (b, d)) if integer \
+        else rng.standard_normal((b, d))
+    args = [torch.from_numpy(a).to(dev) for a in (
+        ue.astype(np.float32), rng.integers(-127, 128, (nb, d)).astype(np.int8),
+        (rng.random(nb) / 50).astype(np.float32),
+        rng.random(nb).astype(np.float32))]
+    for radius in (args[3], torch.zeros_like(args[3])):
+        before = launch_counts()["ann_block_scores"]
+        got = ops.ann_block_scores(*args[:3], radius)
+        assert launch_counts()["ann_block_scores"] == before + 1
+        want = ref.ann_block_scores_ref(*args[:3], radius)
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("store", ["fp32", "int8"])
+def test_tiered_ann_recommender_on_card_equals_device_resident(dev, store):
+    """Both tables in pinned host memory behind the hot-row cache, served
+    on the card, against the same tables resident on the card: ids and
+    scores bitwise (the same kernels on the same bytes), and the coarse
+    kernel launched."""
+    from repro_torch.eval import Recommender
+    from repro_torch.memory import HotRowCache
+    from repro_torch.optim.compression import (dequantize_rows_int8,
+                                               quantize_rows_int8)
+    rng = np.random.default_rng(3)
+    ue = rng.standard_normal((500, 64)).astype(np.float32)
+    ie = rng.standard_normal((3000, 64)).astype(np.float32)
+    kw = dict(k=10, user_batch=64, item_block=256, ann=True, keep_frac=0.25,
+              ann_block=32, topology="h100-hbm-host", device=dev)
+    tiered = Recommender(ue, ie, cache_rows=128, embed_store=store,
+                         pins={"serve/user_embed": "slow",
+                               "serve/item_embed": "slow"}, **kw)
+    if store == "int8":     # the device-resident arm serves the same bytes
+        ue, ie = (dequantize_rows_int8(*quantize_rows_int8(t))
+                  for t in (ue, ie))
+    resident = Recommender(ue, ie, **kw)
+    assert isinstance(tiered.item_e, HotRowCache)
+    assert tiered.item_e.backing.q.is_pinned() if store == "int8" \
+        else tiered.item_e.backing.arr.is_pinned()
+    before = launch_counts()["ann_block_scores"]
+    for q in np.array_split(rng.integers(0, 500, 256), 4):
+        i_t, s_t = tiered.recommend(q)
+        i_r, s_r = resident.recommend(q)
+        np.testing.assert_array_equal(i_t, i_r)
+        np.testing.assert_array_equal(s_t, s_r)
+    assert launch_counts()["ann_block_scores"] == before + 8
+    assert tiered.cache_stats()["serve/item_embed"]["hits"] > 0

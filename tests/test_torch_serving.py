@@ -134,14 +134,21 @@ def test_recommender_matches_reference(k, item_block, user_batch):
     assert "Recommender[30U x 50I]" in ours.describe()
 
 
-@pytest.mark.parametrize("knob", [dict(cache_rows=4), dict(ann=True),
-                                  dict(embed_store="int8"),
-                                  dict(hbm_budget=1 << 20),
-                                  dict(pins={"serve/item_embed": "slow"})])
-def test_recommender_rejects_unported_knobs(knob):
+@pytest.mark.parametrize("knob,error,match", [
+    (dict(cache_rows=-4), ValueError, "cache_rows"),
+    (dict(ann=True, keep_frac=0.0), ValueError, "keep_frac"),
+    (dict(embed_store="fp16"), ValueError, "embed_store"),
+    (dict(hbm_budget=16, pins={"serve/item_embed": "fast"}), MemoryError,
+     "budget"),
+    (dict(pins={"serve/item_embed": "nvme"}), ValueError, "unknown tier")])
+def test_recommender_rejects_unported_knobs(knob, error, match):
+    """Every knob of the reference's Recommender is ported now; each still
+    rejects a value the reference rejects, with the same error type."""
     ue, ie, *_ = _tables()
-    with pytest.raises(NotImplementedError, match=next(iter(knob))):
+    with pytest.raises(error, match=match):
         Recommender(ue, ie, device="cpu", **knob)
+    with pytest.raises(error, match=match):
+        JRecommender(ue, ie, impl="xla", **knob)
 
 
 # ---------------------------------------------------------------- service
