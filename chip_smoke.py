@@ -7,7 +7,7 @@ Run from the repo root on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero before the last line is printed):
   1. device: require CUDA; print the card's name and power limit;
-  2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at
      adversarial shapes and at the main paths' shapes, and time kernel,
@@ -33,7 +33,17 @@ Phases (any failure exits non-zero before the last line is printed):
      accumulated microbatches each, fused Hadamard route; the first
      microbatch's loss and gradients held against the plain route, and
      the training kernels' launch counts read;
-  7. print ``{"kernels": [...]}`` and, last, the device line.
+  7. hold ``sddmm`` against its plain version at adversarial shapes and
+     past 2^31 output elements, then drive the seed COO path (``coo``) on
+     the same graph: the NGCF forward at each dataflow level O0-O3 and the
+     LightGCN forward, each against the CSR route; the Fig 5 training arm
+     (BPR gradients at O1-O3, 2 layers, against the CSR Pipeline; O0 vs O3
+     on a 2^22-edge prefix); 3 steps each of the NGCF/LightGCN FULL cells'
+     training step (``src/repro/launch/cells.py:739-776``); the Fig 6
+     breakdown of one O3 layer; the ``sddmm`` kernel line;
+  8. the subgraph-training baseline beside the full-graph step at depth
+     1-3 (``subgraph``, the paper's headline comparison);
+  9. print ``{"kernels": [...]}`` and, last, the device line.
 Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
 from __future__ import annotations
@@ -75,6 +85,18 @@ TARGET_BATCH, MICROBATCH, TRAIN_STEPS = 150_528, 75_264, 3
 # float32 on this graph (gradients inf/NaN), with 2 it stays finite.
 TRAIN_LAYERS = 2
 GRAD_RTOL = 1e-4           # per gradient leaf, relative in the norm
+# seed COO path: O0's backward keeps ~5 [E, D] tensors per layer, so O0 is
+# timed against O3 on the first 2^22 train edges; the cells' step uses the
+# reference cells' optimizer (src/repro/launch/cells.py:36: adam(1e-4))
+PREFIX_EDGES = 1 << 22
+CELLS_LR = 1e-4
+# Fig 5's O1 row is the unkernelized one: levels 1-3 route their sddmm by
+# impl (as the reference's do), so O1 asks for the plain route here and
+# O2/O3 take the default, the kernel
+LEVEL_IMPL = {1: "torch"}
+# subgraph baseline (examples/fullgraph_vs_subgraph.py): fanout 10, 2
+# workers, 256 seeds; the full-graph arm takes a 256-sample BPR batch
+SUB_FANOUT, SUB_WORKERS, SUB_BATCH = 10, 2, 256
 # H100 SXM datasheet peaks (NVIDIA, dense, without sparsity)
 PEAK_FP32 = 67e12          # FLOP/s, CUDA cores
 PEAK_BYTES = 3.35e12       # bytes/s, HBM3
@@ -91,6 +113,8 @@ TOLERANCE = {
                      f"{ATOL} + {RTOL} * sum of |terms| per element",
     "ann_block_scores": "bitwise on integer-valued users (radius on and "
                         f"off); else allclose rtol={RTOL} atol={ATOL}",
+    "sddmm": "bitwise on integer-valued inputs and on 'mul' at the main "
+             f"shape; else allclose rtol={RTOL} atol={ATOL}",
 }
 
 KERNELS = {
@@ -104,11 +128,14 @@ KERNELS = {
                       "src/repro/kernels/hadamard_spmm.py:106"),
     "ann_block_scores": ("src/repro_torch/kernels/csrc/ann_block_scores.cu",
                          "src/repro/kernels/ann.py:41"),
+    "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
+              "src/repro/kernels/sddmm.py:79"),
 }
 # the kernels each main path runs
 SERVING_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 ANN_KERNELS = ("embedding_bag", "fused_topk_score", "ann_block_scores")
 TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
+COO_KERNELS = ("sddmm",)
 
 
 class SmokeFailure(RuntimeError):
@@ -1139,6 +1166,443 @@ def time_hadamard(torch, pipe, params, errs):
     return out
 
 
+# ------------------------------------------------------------------ phase 7
+def check_sddmm(torch, dev, rng) -> float:
+    """All four ops, coeff None and given, ~30% of edges masked (the first
+    and the last among them), E in {1, 7, 127, 128, 129, 10,000}, D in {1,
+    3, 37, 64, 128}, N_x != N_y; integer-valued inputs bitwise, float
+    inputs to rtol = atol = 1e-5; then one 'mul' past 2^31 output elements,
+    checked on a sample of edges that holds the last 1,024."""
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for e in (1, 7, 127, 128, 129, 10_000):
+        for d in (1, 3, 37, 64, 128):
+            n_x, n_y = 3 + e % 97, 50 + e % 31
+            mask_np = rng.random(e) < 0.7
+            mask_np[0] = mask_np[-1] = False
+            idx = [torch.from_numpy(a).to(dev) for a in (
+                rng.integers(0, n_x, e).astype(np.int32),
+                rng.integers(0, n_y, e).astype(np.int32), mask_np)]
+            for integer in (True, False):
+                def feats(*shape):
+                    a = rng.integers(-3, 4, shape) if integer \
+                        else rng.standard_normal(shape)
+                    return torch.from_numpy(a.astype(np.float32)).to(dev)
+                x, y, coeff = feats(n_x, d), feats(n_y, d), feats(e)
+                for op in ("mul", "add", "dot", "copy"):
+                    for c in (None, coeff):
+                        got = ops.sddmm(op, x, y, *idx, c, impl="cuda")
+                        want = ref.sddmm_ref(op, x, y, *idx, c)
+                        torch.cuda.synchronize()
+                        what = f"sddmm {op} E={e} D={d} coeff={c is not None}"
+                        if integer:
+                            require(torch.equal(got, want),
+                                    f"{what}: not bitwise on integers")
+                        else:
+                            worst = max(worst, close(torch, got, want, what))
+                        require(bool((got[~idx[2]] == 0).all()),
+                                f"{what}: a masked edge is not 0")
+    # past 2^31 output elements: 64-bit offsets
+    e, d, n_x, n_y = 16_778_240, EMBED_DIM, 100_003, 50_021
+    require(e * d > 1 << 31, "the large sddmm case is not past 2^31")
+    x = torch.randn((n_x, d), device=dev)
+    y = torch.randn((n_y, d), device=dev)
+    src = torch.randint(0, n_x, (e,), device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n_y, (e,), device=dev, dtype=torch.int32)
+    mask = torch.rand(e, device=dev) < 0.7
+    got = ops.sddmm("mul", x, y, src, dst, mask, impl="cuda")
+    torch.cuda.synchronize()
+    sample = torch.cat([torch.randint(0, e, (8192,), device=dev),
+                        torch.arange(e - 1024, e, device=dev)])
+    want = ref.sddmm_ref("mul", x, y, src[sample], dst[sample], mask[sample])
+    require(torch.equal(got[sample], want),
+            "sddmm past 2^31 elements differs from the plain version")
+    del got, x, y, src, dst, mask
+    torch.cuda.empty_cache()
+    return worst
+
+
+def rel_norm(a, b) -> float:
+    """|a - b| / |b| in the Frobenius norm, in float64 (the tables' values
+    can pass float32's range when squared)."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def timed(torch, fn):
+    """(result, host ms) around a synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def all_finite(torch, tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def coo_forwards(torch, g, params, csr_g):
+    """``core.ngcf.forward`` at O3, O2, O1, O0 under no_grad (each twice:
+    ms of both calls, peak memory), each level against O3 and O3 against
+    the CSR registry forward; then LightGCN's COO forward against the
+    CSR one.  Returns the phase record and the depth used."""
+    from repro_torch import kernels
+    from repro_torch.core import lightgcn, ngcf
+    from repro_torch.pipeline import get_model
+    out = {"ngcf": {}}
+    depth = N_LAYERS
+    if not all_finite(torch, ngcf.forward(params, g, opt_level=3)):
+        depth = TRAIN_LAYERS
+        emit({"reduced": {"coo_forward_layers": depth,
+                          "config_n_layers": N_LAYERS,
+                          "why": "the 3-layer COO NGCF forward is not finite "
+                                 "on this graph"}})
+    p = dict(params, w1=params["w1"][:depth], w2=params["w2"][:depth])
+    ref3 = None
+    for level in (3, 2, 1, 0):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts()["sddmm"]
+        ms = []
+        for _ in range(2):
+            res, t = timed(torch, lambda: ngcf.forward(
+                p, g, opt_level=level, impl=LEVEL_IMPL.get(level)))
+            ms.append(t)
+        launched = (kernels.launch_counts()["sddmm"] - before) // 2
+        rec = {"ms": ms, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "finite": all_finite(torch, res), "sddmm_launches": launched}
+        require(launched == {3: depth, 2: 2 * depth}.get(level, 0),
+                f"O{level} forward launched sddmm {launched} times")
+        require(tuple(res[0].shape) == (N_USERS, (depth + 1) * EMBED_DIM)
+                and tuple(res[1].shape) == (N_ITEMS, (depth + 1) * EMBED_DIM),
+                f"O{level} forward has the wrong shape")
+        require(rec["finite"], f"O{level} forward is not finite")
+        if level == 3:
+            ref3 = res
+            csr = get_model("ngcf").forward(p, csr_g, depth)
+            rec["vs_csr_rel_norm"] = [rel_norm(a, b) for a, b in zip(res, csr)]
+            require(max(rec["vs_csr_rel_norm"]) <= GRAD_RTOL,
+                    f"COO O3 vs CSR forward: {rec['vs_csr_rel_norm']}")
+            del csr
+        else:
+            rec["vs_O3_rel_norm"] = [rel_norm(a, b) for a, b in zip(res, ref3)]
+            require(max(rec["vs_O3_rel_norm"]) <= GRAD_RTOL,
+                    f"O{level} vs O3 forward: {rec['vs_O3_rel_norm']}")
+        out["ngcf"][f"O{level}"] = rec
+        del res
+    out["ngcf_layers"] = depth
+    del ref3
+    lp = {"user_embed": params["user_embed"], "item_embed": params["item_embed"]}
+    ms = []
+    for _ in range(2):
+        res, t = timed(torch, lambda: lightgcn.forward(lp, g, n_layers=N_LAYERS))
+        ms.append(t)
+    csr = get_model("lightgcn").forward(lp, csr_g, N_LAYERS)
+    rel = [rel_norm(a, b) for a, b in zip(res, csr)]
+    require(all_finite(torch, res) and max(rel) <= GRAD_RTOL,
+            f"LightGCN COO vs CSR forward: {rel}")
+    out["lightgcn"] = {"layers": N_LAYERS, "ms": ms, "vs_csr_rel_norm": rel}
+    return out, depth
+
+
+def grads_rel(grads, want) -> dict:
+    """Per-leaf relative error in the norm, over matching param trees."""
+    from repro_torch.optim.optimizers import tree_leaves
+    got, ref_ = tree_leaves(grads), tree_leaves(want)
+    names = [f"leaf{i}{tuple(t.shape)}" for i, t in enumerate(ref_)]
+    return {n: rel_norm(a, b) for n, a, b in zip(names, got, ref_)}
+
+
+def coo_fig5(torch, dev, g, params, pipe, train):
+    """The paper's Fig 5 training arm: BPR loss and gradients over one
+    150,528-sample batch through ``ngcf.forward`` at O1, O2 and O3 (2
+    layers), each held against the CSR ``Pipeline.grads_for_batch`` on the
+    same params and batch; then O0 against O3 on a prefix of the train
+    edges, where O0's [E, D] residuals fit."""
+    from repro_torch import kernels
+    from repro_torch.core import bpr, graph, ngcf
+    from repro_torch.core.train_step import bpr_value_and_grad
+    from repro_torch.optim.optimizers import tree_leaves
+    p = dict(params, w1=params["w1"][:TRAIN_LAYERS],
+             w2=params["w2"][:TRAIN_LAYERS])
+    rng = np.random.default_rng(SEED)
+    batch_np = bpr.sample_bpr_batch(rng, train.user, train.item, N_ITEMS,
+                                    TARGET_BATCH)
+    batch = [torch.from_numpy(a).to(dev, torch.int64) for a in batch_np]
+    loss_c, grads_c = pipe.grads_for_batch(p, *batch_np)
+    out = {"layers": TRAIN_LAYERS, "batch": TARGET_BATCH}
+    for level in (1, 2, 3):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.launch_counts()["sddmm"]
+        (loss, grads), ms = timed(torch, lambda: bpr_value_and_grad(
+            lambda q: ngcf.forward(q, g, opt_level=level,
+                                   impl=LEVEL_IMPL.get(level)), p, *batch))
+        launched = kernels.launch_counts()["sddmm"] - before
+        require(launched == {3: 1, 2: 2}.get(level, 0) * TRAIN_LAYERS,
+                f"O{level} gradients launched sddmm {launched} times")
+        require(all_finite(torch, tree_leaves(grads)),
+                f"O{level} gradients are not finite")
+        rel = grads_rel(grads, grads_c)
+        loss_rel = abs(float(loss) - loss_c) / abs(loss_c)
+        require(loss_rel <= RTOL, f"O{level} loss {float(loss)} vs CSR {loss_c}")
+        for n, r in rel.items():
+            require(r <= GRAD_RTOL, f"O{level} gradient {n} vs CSR: {r}")
+        out[f"O{level}"] = {"ms": ms, "loss": float(loss),
+                            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                            "loss_rel_err_vs_csr": loss_rel,
+                            "grad_rel_norm_vs_csr": rel,
+                            "sddmm_launches": launched}
+        del grads
+    out["csr_loss"] = loss_c
+    del grads_c
+    # O0 keeps ~5 [E, D] residuals per layer: time it against O3 on a prefix
+    n = PREFIX_EDGES
+    gp = graph.bipartite_from_numpy(train.user[:n], train.item[:n], N_USERS,
+                                    N_ITEMS, device=dev)
+    pre = {}
+    for level in (0, 3):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(2):
+            (loss, grads), t = timed(torch, lambda: bpr_value_and_grad(
+                lambda q: ngcf.forward(q, gp, opt_level=level), p, *batch))
+            ms.append(t)
+        require(all_finite(torch, tree_leaves(grads)),
+                f"prefix O{level} gradients are not finite")
+        pre[level] = (grads, {"ms": ms, "loss": float(loss),
+                              "peak_memory_bytes":
+                                  torch.cuda.max_memory_allocated()})
+    rel = grads_rel(pre[0][0], pre[3][0])
+    for name, r in rel.items():
+        require(r <= GRAD_RTOL, f"prefix O0 gradient {name} vs O3: {r}")
+    out["prefix"] = {"edges": n, "O0": pre[0][1], "O3": pre[3][1],
+                     "O0_vs_O3_grad_rel_norm": rel,
+                     "train_speedup_O0_to_O3": pre[0][1]["ms"][1]
+                     / pre[3][1]["ms"][1]}
+    emit({"reduced": {"fig5_train_layers": TRAIN_LAYERS,
+                      "config_n_layers": N_LAYERS,
+                      "O0_train_edges": n, "train_edges": train.n_edges,
+                      "why": "3 unnormalised NGCF layers overflow float32 in "
+                             "the backward; O0's backward keeps ~5 [E, D] "
+                             "tensors per layer (38.6 GB at 15.08M edges), so "
+                             "O0 and O3 are timed on a prefix of 2^22 edges"}})
+    return out
+
+
+def coo_cells(torch, dev, g, params, train):
+    """The NGCF/LightGCN FULL cells' training step (reference
+    ``launch/cells.py:739-776``): ``TRAIN_STEPS`` Adam steps each, NGCF at
+    O3 with 2 layers, LightGCN with 3, one 150,528-sample BPR batch per
+    step; losses finite and every parameter updated."""
+    from repro_torch import kernels
+    from repro_torch.core import bpr, lightgcn, ngcf
+    from repro_torch.core.train_step import full_graph_step
+    from repro_torch.optim import adam
+    from repro_torch.optim.optimizers import tree_leaves
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    runs = {"ngcf": (dict(params, w1=params["w1"][:TRAIN_LAYERS],
+                          w2=params["w2"][:TRAIN_LAYERS]), TRAIN_LAYERS,
+                     lambda q: ngcf.forward(q, g, opt_level=3)),
+            "lightgcn": ({k: params[k] for k in ("user_embed", "item_embed")},
+                         N_LAYERS,
+                         lambda q: lightgcn.forward(q, g, n_layers=N_LAYERS))}
+    for arch, (p, layers, forward) in runs.items():
+        opt = adam(CELLS_LR)
+        step = full_graph_step(forward, opt)
+        first = tree_leaves(p)
+        state = opt.init(p)
+        before = kernels.launch_counts()["sddmm"]
+        steps = []
+        for k in range(TRAIN_STEPS):
+            batch = [torch.from_numpy(a).to(dev, torch.int64)
+                     for a in bpr.sample_bpr_batch(rng, train.user, train.item,
+                                                   N_ITEMS, TARGET_BATCH)]
+            (p, state, loss), ms = timed(
+                torch, lambda: step(p, state, *batch))
+            require(np.isfinite(float(loss)), f"{arch} cells step {k}: "
+                                              "non-finite loss")
+            steps.append({"step": k, "loss": float(loss), "ms": ms})
+        launched = kernels.launch_counts()["sddmm"] - before
+        want = TRAIN_STEPS * layers if arch == "ngcf" else 0
+        require(launched == want, f"{arch} cells launched sddmm {launched} "
+                                  f"times, expected {want}")
+        last = tree_leaves(p)
+        require(all(not torch.equal(a, b) for a, b in zip(first, last))
+                and all_finite(torch, last),
+                f"{arch} cells: a parameter did not change or is not finite")
+        out[arch] = {"layers": layers, "steps": steps,
+                     "sddmm_launches": launched}
+        del p, state, first, last
+    out["optimizer"] = f"adam lr {CELLS_LR}"
+    return out
+
+
+def coo_fig6(torch, g, params):
+    """The paper's Fig 6 breakdown of one O3 layer (layer 0): the SDDMM,
+    the two SpMMs of its messages, the two copy-sum aggregations, the four
+    node-level matmuls and the whole layer, CUDA events each."""
+    from repro_torch.core import sparse_ops
+    from repro_torch.core.message_passing import ngcf_propagate_bipartite
+    from repro_torch.kernels import ops
+    xu, xi = params["user_embed"], params["item_embed"]
+    w1, w2 = params["w1"][0], params["w2"][0]
+    u, i, mask = g.user, g.item, g.edge_mask
+    mul_e = ops.sddmm("mul", xu, xi, u, i, mask)
+    sddmm_ms = cuda_ms(torch, lambda: ops.sddmm("mul", xu, xi, u, i, mask),
+                       reps=5)
+    spmm_ms = (cuda_ms(torch, lambda: sparse_ops.spmm(
+        "sum", mul_e, i, N_ITEMS, mask), reps=3)
+        + cuda_ms(torch, lambda: sparse_ops.spmm(
+            "sum", mul_e, u, N_USERS, mask), reps=3))
+    del mul_e
+    copy_ms = (cuda_ms(torch, lambda: sparse_ops.gspmm_copy_sum(
+        xu, u, i, N_ITEMS, mask), reps=3)
+        + cuda_ms(torch, lambda: sparse_ops.gspmm_copy_sum(
+            xi, i, u, N_USERS, mask), reps=3))
+    # two [n_items, D] and two [n_users, D] products by a [D, D] weight
+    matmul_ms = 2 * (cuda_ms(torch, lambda: xi @ w1, reps=10)
+                     + cuda_ms(torch, lambda: xu @ w2, reps=10))
+    layer_ms = cuda_ms(torch, lambda: ngcf_propagate_bipartite(
+        g, xu, xi, w1, w2, opt_level=3), reps=3)
+    return {"sddmm_ms": sddmm_ms, "spmm_ms": spmm_ms,
+            "copy_sum_ms": copy_ms, "matmul_ms": matmul_ms,
+            "layer_ms": layer_ms,
+            "sparse_fraction": (sddmm_ms + spmm_ms) / layer_ms,
+            "sparse_fraction_with_copy_sums":
+                (sddmm_ms + spmm_ms + copy_ms) / layer_ms}
+
+
+def time_sddmm(torch, g, params, errs, launches_per_forward):
+    """``sddmm`` at the O3 shape (layer 0's tables, every train edge):
+    'mul' kernel against its plain version (bitwise) and a two-call
+    yardstick; 'dot' at the same edges.  Bounds from this run's inputs:
+    each input read once, the output written once."""
+    from repro_torch.kernels import ops, ref
+    xu, xi = params["user_embed"], params["item_embed"]
+    u, i, mask = g.user, g.item, g.edge_mask
+    args = (xu, xi, u, i, mask)
+    got = ops.sddmm("mul", *args, impl="cuda")
+    want = ref.sddmm_ref("mul", *args)
+    require(torch.equal(got, want), "sddmm main shape: not bitwise equal to "
+                                    "the plain version")
+    errs["sddmm"] = max(errs["sddmm"], max_err(got, want))
+    del got, want
+    t_k = cuda_ms(torch, lambda: ops.sddmm("mul", *args, impl="cuda"), reps=10)
+    t_p = cuda_ms(torch, lambda: ref.sddmm_ref("mul", *args), reps=3)
+    t_y = cuda_ms(torch, lambda: xu.index_select(0, u) * xi.index_select(0, i),
+                  reps=5)
+    e, d = u.numel(), xu.shape[1]
+    inputs = (xu.numel() * 4 + xi.numel() * 4 + u.numel() * 4 + i.numel() * 4
+              + mask.numel() * mask.element_size())
+    b_ms, b_by = bound(inputs + e * d * 4, float(e * d))
+    got = ops.sddmm("dot", *args, impl="cuda")
+    want = ref.sddmm_ref("dot", *args)
+    errs["sddmm"] = max(errs["sddmm"], close(torch, got, want,
+                                             "sddmm dot main"))
+    del got, want
+    t_dk = cuda_ms(torch, lambda: ops.sddmm("dot", *args, impl="cuda"), reps=10)
+    t_dp = cuda_ms(torch, lambda: ref.sddmm_ref("dot", *args), reps=3)
+    db_ms, db_by = bound(inputs + e * 4, 2.0 * e * d)
+    rec = dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, yardstick_ms=t_y,
+               yardstick="x.index_select(0, src) * y.index_select(0, dst)",
+               launches_per_forward=launches_per_forward,
+               work=f"mul, E={e} D={d} (one O3 layer)",
+               dot={"ms": t_dk, "plain_ms": t_dp, "bound_ms": db_ms,
+                    "bound_by": db_by})
+    emit({"kernel": "sddmm", "kernel_ms": t_k,
+          **{k: v for k, v in rec.items() if k != "ms"},
+          "max_abs_err": errs["sddmm"], "tolerance": TOLERANCE["sddmm"]})
+    return rec
+
+
+def coo_phase(torch, dev, train, pipe, errs):
+    """The seed COO path at NGCF FULL width on the smoke's graph; the
+    launch counts are read around the forwards, the Fig 5 arm and the
+    cells' steps (the Fig 6 and kernel timings come after)."""
+    from repro_torch import kernels
+    from repro_torch.core import graph, ngcf
+    t0 = time.perf_counter()
+    g = graph.bipartite_from_numpy(train.user, train.item, N_USERS, N_ITEMS,
+                                   device=dev)
+    params = ngcf.init_params(SEED, N_USERS, N_ITEMS, EMBED_DIM, N_LAYERS,
+                              device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fwd, depth = coo_forwards(torch, g, params, pipe.g)
+    fig5 = coo_fig5(torch, dev, g, params, pipe, train)
+    cells = coo_cells(torch, dev, g, params, train)
+    launches = kernels.launch_counts()
+    require(launches["sddmm"] > 0, "sddmm never launched on the COO path")
+    with torch.no_grad():
+        fig6 = coo_fig6(torch, g, params)
+        rec = time_sddmm(torch, g, params, errs, depth)
+    emit({"phase": "coo", "config": "ngcf-3l-128e", "edges": train.n_edges,
+          "setup_s": setup_s, "forward": fwd, "fig5_train": fig5,
+          "inference_speedup_O0_to_O3": fwd["ngcf"]["O0"]["ms"][1]
+          / fwd["ngcf"]["O3"]["ms"][1],
+          "cells_train": cells, "fig6_layer": fig6, "launches": launches})
+    return launches, rec, params
+
+
+def subgraph_phase(torch, dev, train, params):
+    """The paper's headline comparison (``examples/fullgraph_vs_subgraph.py``)
+    at full width: ``SubgraphTrainer`` over both edge directions (fanout 10,
+    2 workers, 256 seeds, loss mean(e²)) beside the COO LightGCN full-graph
+    gradient step with a 256-sample BPR batch, at depth 1, 2 and 3."""
+    from repro_torch.core import bpr, graph, lightgcn
+    from repro_torch.core.train_step import bpr_value_and_grad
+    from repro_torch.dist.subgraph import SubgraphTrainer
+    g = graph.bipartite_from_numpy(train.user, train.item, N_USERS, N_ITEMS,
+                                   device=dev)
+    lp = {k: params[k] for k in ("user_embed", "item_embed")}
+    x_all = torch.cat([lp["user_embed"], lp["item_embed"]])
+    src = np.concatenate([train.user, train.item + N_USERS])
+    dst = np.concatenate([train.item + N_USERS, train.user])
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for layers in (1, 2, 3):
+        batch = [torch.from_numpy(a).to(dev, torch.int64)
+                 for a in bpr.sample_bpr_batch(rng, train.user, train.item,
+                                               N_ITEMS, SUB_BATCH)]
+        full = [timed(torch, lambda: bpr_value_and_grad(
+            lambda q: lightgcn.forward(q, g, n_layers=layers), lp, *batch))[1]
+            for _ in range(2)]
+        t0 = time.perf_counter()
+        tr = SubgraphTrainer(src, dst, N_USERS + N_ITEMS, n_layers=layers,
+                             fanout=SUB_FANOUT, n_workers=SUB_WORKERS)
+        csr_s = time.perf_counter() - t0
+        seeds = rng.integers(0, N_USERS, SUB_BATCH).astype(np.int32)
+
+        def loss(e, s):
+            return torch.mean(e ** 2)
+
+        tr.step(seeds, x_all, loss, record=False)             # warm-up
+        grads, st = tr.step(seeds, x_all, loss)
+        require(all_finite(torch, [grads]), "subgraph gradients not finite")
+        t_sub = st.sample_s + st.forward_s + st.backward_s
+        rows.append({"layers": layers, "full_graph_ms": full,
+                     "subgraph_ms": t_sub * 1e3,
+                     "sample_ms": st.sample_s * 1e3,
+                     "forward_ms": st.forward_s * 1e3,
+                     "backward_ms": st.backward_s * 1e3,
+                     "build_pct": st.sample_s / t_sub * 100,
+                     "expanded_vertices": st.expanded_vertices,
+                     "redundancy": tr.redundancy(), "csr_build_s": csr_s})
+        del tr
+    emit({"phase": "subgraph", "directed_edges": int(len(src)),
+          "nodes": N_USERS + N_ITEMS, "fanout": SUB_FANOUT,
+          "workers": SUB_WORKERS, "seeds": SUB_BATCH,
+          "full_graph_bpr_batch": SUB_BATCH, "loss": "mean(e^2)",
+          "depths": rows})
+
+
 def main() -> int:
     torch = setup()
     build()
@@ -1179,9 +1643,21 @@ def main() -> int:
               "max_abs_err": errs["hadamard_spmm"],
               "tolerance": TOLERANCE["hadamard_spmm"]})
     times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
+    del layer0
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        errs["sddmm"] = check_sddmm(torch, dev, rng)
+    emit({"phase": "adversarial", "kernel": "sddmm",
+          "max_abs_err": errs["sddmm"]})
+    coo_launches, times["sddmm"], coo_params = coo_phase(torch, dev, train,
+                                                         pipe, errs)
+    del pipe
+    torch.cuda.empty_cache()
+    subgraph_phase(torch, dev, train, coo_params)
     paths = {"serving": {k: serve_launches[k] for k in SERVING_KERNELS},
              "ann_serving": {k: ann_launches[k] for k in ANN_KERNELS},
-             "training": {k: train_launches[k] for k in TRAINING_KERNELS}}
+             "training": {k: train_launches[k] for k in TRAINING_KERNELS},
+             "coo": {k: coo_launches[k] for k in COO_KERNELS}}
     emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,1 +1,2 @@
-"""Synthetic interaction data (numpy, seeded)."""
+"""Synthetic interaction data (numpy, seeded), the training loader and
+k-hop neighbour sampling."""

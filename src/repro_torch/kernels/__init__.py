@@ -5,6 +5,7 @@ from __future__ import annotations
 from repro_torch.kernels.ann import ann_block_scores_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.hadamard_spmm import hadamard_spmm_cuda
+from repro_torch.kernels.sddmm import sddmm_cuda
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import fused_topk_score_cuda
 
@@ -14,6 +15,7 @@ WRAPPERS = {
     "fused_topk_score": fused_topk_score_cuda,
     "hadamard_spmm": hadamard_spmm_cuda,
     "ann_block_scores": ann_block_scores_cuda,
+    "sddmm": sddmm_cuda,
 }
 
 

@@ -14,6 +14,7 @@ from repro_torch.kernels.ann import ann_block_scores_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.hadamard_spmm import (STRUCTURES, hadamard_spmm_cuda,
                                                hadamard_spmm_plain)
+from repro_torch.kernels.sddmm import _Sddmm
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import fused_topk_score_cuda
 
@@ -30,6 +31,14 @@ def route(impl, tensor) -> str:
         raise ValueError("impl='cuda' needs CUDA tensors; this one lies on "
                          f"{tensor.device}")
     return impl
+
+
+def sddmm(op, x, y, src, dst, edge_mask, coeff=None, impl=None):
+    """One value per edge (``kernels/sddmm.py``): 'mul', 'add', 'dot' or
+    'copy', +0.0 on masked edges.  'copy' scales by ``coeff`` here, while
+    ``core.sparse_ops.sddmm`` takes no coeff, as in the reference.  Both
+    routes run inside one autograd Function with a written-out backward."""
+    return _Sddmm.apply(op, x, y, src, dst, edge_mask, coeff, route(impl, x))
 
 
 def spmm_csr(reduce, values, indptr, src_sorted, n_nodes, gather=False,

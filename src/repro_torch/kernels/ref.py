@@ -12,6 +12,30 @@ import math
 import torch
 
 NEG_INF = float("-inf")
+SDDMM_OPS = ("mul", "dot", "add", "copy")
+
+
+def sddmm_ref(op: str, x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
+              dst: torch.Tensor, edge_mask: torch.Tensor,
+              coeff: torch.Tensor | None = None) -> torch.Tensor:
+    """One value per edge: 'mul' x[src] * y[dst], 'add' x[src] + y[dst],
+    'dot' <x[src], y[dst]> (f32[E]), 'copy' coeff * x[src] (coeff 1 when
+    None); masked edges give +0.0."""
+    if op not in SDDMM_OPS:
+        raise ValueError(op)
+    a = x.index_select(0, src)
+    if op == "copy":
+        m = a if coeff is None else a * coeff[:, None]
+    else:
+        b = y.index_select(0, dst)
+        if op == "mul":
+            m = a * b
+        elif op == "add":
+            m = a + b
+        else:
+            m = torch.sum(a * b, dim=-1)
+    mask = edge_mask.bool()
+    return torch.where(mask if m.dim() == 1 else mask[:, None], m, 0.0)
 
 
 def spmm_csr_ref(reduce: str, values: torch.Tensor, indptr: torch.Tensor,

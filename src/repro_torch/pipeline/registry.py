@@ -43,11 +43,6 @@ class ModelSpec:
             and not getattr(g, "fused_hadamard", False)
 
 
-def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
-    # jax.nn.leaky_relu: where(x >= 0, x, slope * x); its gradient at 0 is 1
-    return torch.where(x >= 0, x, slope * x)
-
-
 # ---------------------------------------------------------------- lightgcn
 def _lightgcn_init(seed, n_users, n_items, embed_dim, n_layers, device="cuda"):
     del n_layers
@@ -90,8 +85,8 @@ def _ngcf_forward(params, g: BipartiteCSR, n_layers: int):
         # aggregate raw source features first, matmul at node level
         h_item = agg_mul_item @ w1 + g.agg_u2i(xu) @ w2
         h_user = agg_mul_user @ w1 + g.agg_i2u(xi) @ w2
-        xu = _leaky_relu(h_user, 0.2)
-        xi = _leaky_relu(h_item, 0.2)
+        xu = _ngcf.leaky_relu(h_user, 0.2)
+        xi = _ngcf.leaky_relu(h_item, 0.2)
         outs_u.append(xu)
         outs_i.append(xi)
     return torch.cat(outs_u, -1), torch.cat(outs_i, -1)
