@@ -10,8 +10,11 @@ Phases (any failure exits non-zero before the last line is printed):
   2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at
-     adversarial shapes and at the main paths' shapes, and time kernel,
-     plain version and (where one exists) a single PyTorch library call;
+     adversarial shapes (for ``spmm_csr`` also its row split's cases, each
+     called twice and required bitwise equal) and at the main paths'
+     shapes, and time kernel, plain version and (where one exists) a
+     single PyTorch library call; ``ann_block_scores`` and its library
+     call also on the device alone (a CUDA graph replay) and on the host;
   4. drive the serving path at the LightGCN FULL width
      (``src/repro/configs/lightgcn.py:7``: 349,184 users x 53,248 items,
      D = 128, 3 layers) with 2^24 requested edges: data -> BipartiteCSR
@@ -102,8 +105,9 @@ PEAK_FP32 = 67e12          # FLOP/s, CUDA cores
 PEAK_BYTES = 3.35e12       # bytes/s, HBM3
 
 TOLERANCE = {
-    "spmm_csr": f"adversarial: allclose rtol={RTOL} atol={ATOL}; main: "
-                f"|err| <= {ATOL} + {RTOL} * sum of |terms| per element",
+    "spmm_csr": f"adversarial: allclose rtol={RTOL} atol={ATOL}; row-split "
+                f"cases and main: |err| <= {ATOL} + {RTOL} * sum of |terms| "
+                "per element (max: exact); repeated calls bitwise",
     "embedding_bag": f"allclose rtol={RTOL} atol={ATOL}",
     "fused_topk_score": "ids and scores bitwise on integer-valued inputs; "
                         f"else scores allclose rtol={RTOL} atol={ATOL} and "
@@ -136,6 +140,10 @@ SERVING_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 ANN_KERNELS = ("embedding_bag", "fused_topk_score", "ann_block_scores")
 TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
 COO_KERNELS = ("sddmm",)
+# spmm_csr's row-split cases (check_spmm); gathered rows come from a table
+# of SPLIT_SRC_ROWS rows
+SPLIT_CASES = ("long_row", "boundaries", "no_edges", "long_indptr")
+SPLIT_SRC_ROWS = 500
 
 
 class SmokeFailure(RuntimeError):
@@ -197,6 +205,43 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(torch, fn, reps: int = 100) -> float:
+    """Device time per call, without the host's launch path: ``reps``
+    calls captured once in a CUDA graph and replayed between CUDA events
+    (mean of 5 replays)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (5 * reps)
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host time per call (µs): ``calls`` back-to-back calls on a host
+    clock, without waiting for the device; what the caller's thread
+    spends in the wrapper and the launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / PEAK_FP32
     return (max(t_bytes, t_ops) * 1e3,
@@ -255,7 +300,9 @@ def topk_agree(s_k, i_k, s_p, i_p, what: str, exact: bool = False) -> int:
 # ------------------------------------------------------------------ phase 3
 def check_spmm(torch, dev, rng) -> float:
     """Adversarial shapes: D not a multiple of 4 or 128, empty rows (max ->
-    0), zero edges, ragged per-edge values."""
+    0), zero edges, ragged per-edge values; then the row split's cases
+    (``split_graph``), each for sum and max, gather on and off, each
+    called twice and required bitwise equal."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spmm import build_csr_by_dst
     worst = 0.0
@@ -280,7 +327,67 @@ def check_spmm(torch, dev, rng) -> float:
             worst = max(worst, close(torch, got, want,
                                      f"spmm_csr {reduce} n={n} e={e} d={d}"))
             require(bool((got[empty] == 0).all()), "spmm empty row != 0")
+    for case in SPLIT_CASES:
+        indptr, n, src = split_graph(case, rng)
+        for gather in (True, False):
+            rows = SPLIT_SRC_ROWS if gather else len(src)
+            v = torch.from_numpy(rng.standard_normal((rows, EMBED_DIM))
+                                 .astype(np.float32)).to(dev)
+            args = (torch.from_numpy(indptr).to(dev),
+                    torch.from_numpy(src).to(dev), n)
+            empty = torch.from_numpy(np.diff(indptr[:n + 1]) == 0).to(dev)
+            for reduce in ("sum", "max"):
+                what = f"spmm_csr split {case} {reduce} gather={gather}"
+                got = ops.spmm_csr(reduce, v, *args, gather=gather,
+                                   impl="cuda")
+                again = ops.spmm_csr(reduce, v, *args, gather=gather,
+                                     impl="cuda")
+                require(torch.equal(got, again), f"{what}: two calls differ")
+                want = ref.spmm_csr_ref(reduce, v, *args, gather=gather)
+                if reduce == "max":
+                    require(torch.equal(got, want), f"{what}: max not exact")
+                else:
+                    abs_sum = ref.spmm_csr_ref("sum", v.abs(), *args,
+                                               gather=gather)
+                    worst = max(worst, close_sum(torch, got, want, abs_sum,
+                                                 what))
+                require(bool((got[empty] == 0).all()),
+                        f"{what}: empty row != 0")
     return worst
+
+
+def split_graph(case, rng):
+    """(indptr i64, n_nodes, src i32) for the row-split cases, T = the
+    kernel's chunk: 'long_row' one row of 120,000 edges (> 50 % of E) in a
+    Zipf graph with trailing empty rows; 'boundaries' rows of T - 1, T and
+    T + 1 edges, empty rows, a row that starts exactly on a chunk
+    boundary (merge position indptr[v] + v a multiple of T) and trailing
+    empty rows; 'no_edges' E = 0; 'long_indptr' the boundaries graph
+    called with 3 rows fewer than its indptr holds."""
+    from repro_torch.kernels.spmm import CHUNK as t
+    degs = [t - 1, t, t + 1, 0, 0, 5]
+    degs.append((-(sum(degs) + len(degs) + 1)) % t)
+    degs += [3 * t, 1, 0, t - 1, 0, 0]
+    n = len(degs)
+    if case == "long_row":
+        degs = rng.zipf(1.5, 2000).clip(0, 500)
+        degs[17] = 120_000
+        degs[-5:] = 0
+        n = len(degs)
+    elif case == "no_edges":
+        degs = [0] * (2 * t + 3)
+        n = len(degs)
+    elif case == "long_indptr":
+        degs += [t + 1, 7, 2 * t]
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    src = rng.integers(0, SPLIT_SRC_ROWS, int(indptr[-1])).astype(np.int32)
+    if case == "long_row":
+        require(degs[17] * 2 > indptr[-1], "long row holds <= 50 % of E")
+    if case == "boundaries":
+        starts = indptr[:-1] + np.arange(n)
+        require(((starts % t == 0) & (np.diff(indptr) > 0))[1:].any(),
+                "no row starts on a chunk boundary")
+    return indptr, n, src
 
 
 def check_embedding_bag(torch, dev, rng) -> float:
@@ -482,7 +589,8 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
     version and library call on the same inputs; bound from this run's
     inputs."""
     from repro_torch.eval.topk import _gather_rows, _padded_seen
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, row_split
+    from repro_torch.kernels.spmm import CHUNK
     dev = user_f.device
     out = {}
 
@@ -518,6 +626,9 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
         flops += src.numel() * x.shape[1]
         ms, plain, lib = ms + t_k, plain + t_p, lib + t_l
         per_dir.append({"n_dst": n, "edges": int(src.numel()),
+                        "longest_row": int((ip[1:n + 1] - ip[:n]).max()),
+                        "chunk": CHUNK,
+                        "chunks": row_split.n_chunks(n, src.numel(), CHUNK),
                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                         "gathered_row_bytes": src.numel() * x.shape[1] * 4})
     b_ms, b_by = bound(bytes_, flops)
@@ -930,34 +1041,53 @@ def pinned_h2d(torch, dev) -> float:
 
 
 def time_ann(torch, index, user_f, users, errs):
-    """``ann_block_scores`` at the serving shape: one full service batch of
-    64 users against the 832-block index (the affinity launch), kernel,
-    plain version and a one-matmul yardstick over dequantized centroids."""
+    """``ann_block_scores`` at the serving shape (one full service batch of
+    64 users against the 832-block index, the affinity launch) and at the
+    whole-sweep shape (16,384 users against the same blocks): kernel,
+    plain version and a one-matmul yardstick over dequantized centroids.
+    Each is timed per Python call (``cuda_ms``, today's method), on the
+    device alone (``device_ms``), and on the host (``host_us``)."""
     from repro_torch.kernels import ops, ref
     dev = user_f.device
     u = torch.from_numpy(np.asarray(users[:MAX_BATCH])).to(dev).long()
-    ue = user_f[u].contiguous()
-    args = (ue, index._cq_dev, index._scale_dev)
-    for radius in (index._zero_dev, index._radius_dev):
-        got = ops.ann_block_scores(*args, radius, impl="cuda")
-        want = ref.ann_block_scores_ref(*args, radius)
-        errs["ann_block_scores"] = max(errs["ann_block_scores"], close(
-            torch, got, want, "ann_block_scores main"))
-    zero = index._zero_dev
-    t_k = cuda_ms(torch, lambda: ops.ann_block_scores(*args, zero,
-                                                      impl="cuda"), reps=100)
-    t_p = cuda_ms(torch, lambda: ref.ann_block_scores_ref(*args, zero),
-                  reps=100)
     cent = index._cq_dev.float()
-    t_l = cuda_ms(torch, lambda: torch.matmul(ue, cent.T), reps=100)
-    b, d = ue.shape
+    zero = index._zero_dev
     nb = index.n_blocks
-    b_ms, b_by = bound(b * d * 4 + nb * d + nb * 8 + b * nb * 4,
-                       2.0 * b * nb * d + 3.0 * b * nb + 2.0 * b * d)
-    rec = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-               bound_by=b_by, work=f"B={b} nb={nb} D={d} (one service batch)",
-               yardstick="torch.matmul(ue, float(centroids_q).T)")
-    emit({"kernel": "ann_block_scores", "kernel_ms": t_k,
+    shapes = {}
+    for name, ue in (("serving", user_f[u].contiguous()),
+                     ("sweep", user_f[:N_EVAL_USERS].contiguous())):
+        args = (ue, index._cq_dev, index._scale_dev)
+        for radius in (zero, index._radius_dev):
+            got = ops.ann_block_scores(*args, radius, impl="cuda")
+            want = ref.ann_block_scores_ref(*args, radius)
+            errs["ann_block_scores"] = max(errs["ann_block_scores"], close(
+                torch, got, want, f"ann_block_scores {name}"))
+
+        def kernel():
+            return ops.ann_block_scores(*args, zero, impl="cuda")
+
+        def library():
+            return torch.matmul(ue, cent.T)
+
+        b, d = ue.shape
+        b_ms, b_by = bound(b * d * 4 + nb * d + nb * 8 + b * nb * 4,
+                           2.0 * b * nb * d + 3.0 * b * nb + 2.0 * b * d)
+        shapes[name] = dict(
+            ms=cuda_ms(torch, kernel, reps=100),
+            plain_ms=cuda_ms(torch, lambda: ref.ann_block_scores_ref(
+                *args, zero), reps=100),
+            library_ms=cuda_ms(torch, library, reps=100),
+            device_ms=device_ms(torch, kernel),
+            library_device_ms=device_ms(torch, library),
+            host_us_per_call=host_us(torch, kernel),
+            library_host_us_per_call=host_us(torch, library),
+            bound_ms=b_ms, bound_by=b_by, work=f"B={b} nb={nb} D={d}")
+    rec = dict(shapes["serving"], sweep=shapes["sweep"],
+               yardstick="torch.matmul(ue, float(centroids_q).T)",
+               timing="ms: 100 Python calls between CUDA events; device_ms: "
+                      "100 calls captured in a CUDA graph and replayed; "
+                      "host_us_per_call: 1,000 calls on a host clock")
+    emit({"kernel": "ann_block_scores", "kernel_ms": rec["ms"],
           **{k: v for k, v in rec.items() if k != "ms"},
           "max_abs_err": errs["ann_block_scores"],
           "tolerance": TOLERANCE["ann_block_scores"]})
@@ -1668,7 +1798,9 @@ def main() -> int:
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
+                     "library_ms": t["library_ms"],
+                     **{k: t[k] for k in ("device_ms", "library_device_ms")
+                        if k in t}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ into a shared library with a plain C interface and loaded with
 builds it (``load``), and ``build_all`` builds several at once, one
 ``nvcc`` process per source, all started together.  Libraries land in
 ``build/repro_torch/`` at the repo root (listed in ``.gitignore``), named
-by a hash of their source and flags, so an edited source never loads a
-stale library.
+by a hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header never loads a stale library.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point, by library
 SIGNATURES = {
     "spmm_csr": {
-        "spmm_csr_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "spmm_csr_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _I,
+                         _I, _P),
     },
     "hadamard_spmm": {
         "hadamard_spmm_f32": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I,
@@ -41,7 +42,7 @@ SIGNATURES = {
         "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "ann_block_scores": {
-        "ann_block_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "ann_block_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "sddmm": {
         "sddmm_f32": (_I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
@@ -72,8 +73,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

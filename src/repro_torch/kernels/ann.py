@@ -10,12 +10,14 @@ over the whole ``[B, n_blocks]`` matrix in one launch: the score upper
 bound of the block-pruned retrieval (``serving/ann.py``), or, with the
 radius zeroed, the probing affinity the blocks are ranked by.
 
-Bound on the H100: its launch at the serving shapes (B ≤ 64, 832 blocks,
+Bound on the H100: latency at the serving shapes (B ≤ 64, 832 blocks,
 D = 128: ~0.15 MB and ~14 MFLOP); operations for a sweep that stages
-thousands of users.  One block per 64 × 64 output tile stages the users'
-rows and the int8 centroids (converted on load) in shared memory, over D
-in chunks of 32; the norm comes from the same staged chunks; the epilogue
-rounds as the plain version does, so integer-valued inputs are bitwise.
+thousands of users.  The kernel picks its output tile by shape: a serving
+batch gets 16 × 32 tiles (104 blocks for 64 users × 832 blocks, where
+64 × 64 tiles gave 13 on the card's 132 SMs), its rows staged in shared
+memory once; a sweep keeps 64 × 64 tiles over D in chunks of 32.  Rows load 16 bytes at a time when
+D % 16 == 0; the norm comes from the staged rows; the epilogue rounds as
+the plain version does, so integer-valued inputs are bitwise.
 """
 from __future__ import annotations
 
@@ -53,10 +55,13 @@ def ann_block_scores_cuda(ue: torch.Tensor, centroids_q: torch.Tensor,
     out = torch.empty((b, nb), dtype=torch.float32, device=ue.device)
     if b == 0 or nb == 0:
         return out
+    vec16 = d % 16 == 0 and ue.data_ptr() % 16 == 0 \
+        and centroids_q.data_ptr() % 16 == 0
     lib = _build.load("ann_block_scores")
     err = lib.ann_block_scores_f32(
         ue.data_ptr(), centroids_q.data_ptr(), scale.data_ptr(),
-        radius.data_ptr(), out.data_ptr(), b, nb, d, ue.device.index or 0,
+        radius.data_ptr(), out.data_ptr(), b, nb, d, int(vec16),
+        ue.device.index or 0,
         ctypes.c_void_p(torch.cuda.current_stream(ue.device).cuda_stream))
     _build.check(lib, err, "ann_block_scores")
     ann_block_scores_cuda.launches += 1

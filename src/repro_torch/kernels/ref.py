@@ -116,7 +116,13 @@ def ann_block_scores_ref(ue: torch.Tensor, centroids_q: torch.Tensor,
     cent = centroids_q.float()
     dots = ue @ cent.T
     dots = dots * scale[None, :].float()
-    unorm = torch.sqrt(torch.sum(ue * ue, dim=1, keepdim=True))
+    # ‖u‖₂ correctly rounded, as numpy, XLA and the kernel's __fsqrt_rn give
+    # it: torch.sqrt on float32 CPU tensors is not correctly rounded on
+    # every build (sqrt(147) comes out one ulp high), and the block
+    # selection orders blocks by these bits.  A float64 root rounded once
+    # to float32 is correctly rounded; the sum of squares stays float32.
+    sumsq = torch.sum(ue * ue, dim=1, keepdim=True)
+    unorm = torch.sqrt(sumsq.double()).float()
     return dots + unorm * radius[None, :].float()
 
 

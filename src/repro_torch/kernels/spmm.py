@@ -1,15 +1,21 @@
 """CSR SpMM — the wrapper of ``csrc/spmm_csr.cu`` and the host CSR build.
 
 Replaces ``src/repro/kernels/spmm.py:spmm_csr_pallas``.  It carries every
-LightGCN aggregation: both directions of ``sym_propagate``, every layer.
+LightGCN aggregation (both directions of ``sym_propagate``, every layer,
+and through the reverse CSR every backward) and NGCF's composed edge
+aggregation.
 
 Bound on the H100: memory.  A call reads each source row once per edge
 (E·D·4 bytes of gathers), E·4 bytes of indices, and writes n·D·4 bytes;
-one add per gathered float.  The design keeps the destination row in
-registers of the one warp that owns it (no atomics, no shared memory),
-reads rows as 16-byte float4 lanes, and unrolls the edge loop so several
-row loads are in flight per warp.  Its weak spot is the Zipf degree tail:
-the longest row is walked by a single warp.
+one add per gathered float.  The kernel splits the edges, not the rows:
+a merge-path partition (``row_split.py``, ``csrc/row_split.cuh``) cuts
+rows + edges into chunks of ``CHUNK`` items and one warp walks each, so
+a Zipf row of 256k edges is spread over ~250 warps instead of one.  Rows
+that end inside a chunk are reduced in registers (16-byte float4 lanes,
+several row loads in flight) and written directly; a row that crosses a
+chunk boundary leaves one partial per chunk in a workspace, and a second
+small pass combines them in chunk order.  No atomics, so the output is
+the same bits on every call; no host read per call.
 """
 from __future__ import annotations
 
@@ -18,7 +24,11 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, row_split
+
+# merge items (edges + row ends) per chunk, one warp each: ~15,000 chunks
+# per direction on the 15.08M-edge graph, ~3.5 waves of resident warps
+CHUNK = 1024
 
 
 def spmm_csr_cuda(reduce: str, values: torch.Tensor, indptr: torch.Tensor,
@@ -46,13 +56,19 @@ def spmm_csr_cuda(reduce: str, values: torch.Tensor, indptr: torch.Tensor,
     out = torch.empty((n_nodes, d), dtype=torch.float32, device=values.device)
     if n_nodes == 0 or d == 0:
         return out
+    n_edges = src_sorted.shape[0] if gather else values.shape[0]
+    rows = row_split.chunk_rows(indptr, n_nodes, n_edges, CHUNK)
+    n_chunks = rows.numel() - 1
+    partial = torch.empty((n_chunks, 2, d), dtype=torch.float32,
+                          device=values.device)
     vec4 = d % 4 == 0 and values.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
     lib = _build.load("spmm_csr")
     err = lib.spmm_csr_f32(values.data_ptr(), indptr.data_ptr(),
                            src_sorted.data_ptr() if gather else None,
-                           out.data_ptr(), n_nodes, d, int(gather),
-                           int(reduce == "max"), int(vec4),
+                           rows.data_ptr(), partial.data_ptr(),
+                           out.data_ptr(), n_nodes, n_chunks, CHUNK, d,
+                           int(gather), int(reduce == "max"), int(vec4),
                            values.device.index or 0,
                            ctypes.c_void_p(torch.cuda.current_stream(
                                values.device).cuda_stream))

@@ -5,6 +5,8 @@ float32 dot products exact, so those cases hold bit for bit; real-valued
 ones hold to rtol = atol = 1e-5 (fp32 sums in another order).  The
 reference's own ANN tests (tests/test_serving.py) are mirrored on the
 port."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -82,6 +84,40 @@ def test_ann_block_scores_plain_matches_reference(b, nb, d, zero_radius,
         unfused = (ue @ cq.astype(np.float32).T) * scale[None] \
             + np.sqrt((ue * ue).sum(1, keepdims=True)) * radius[None]
         np.testing.assert_array_equal(got, unfused)
+
+
+def _squares_summing_to(s, d):
+    """Integer entries (greedy squares, zero-padded to d) whose squares sum
+    to s."""
+    row = []
+    while s:
+        a = math.isqrt(s)
+        row.append(a)
+        s -= a * a
+    assert len(row) <= d
+    return row + [0] * (d - len(row))
+
+
+def test_ann_block_scores_plain_norm_is_correctly_rounded():
+    """‖u‖₂ is correctly rounded: users whose sums of squares run over
+    140..459 (147 is the first that ``torch.sqrt`` rounds one ulp high on
+    some CPU builds), held bitwise to numpy's unfused formula with its
+    correctly rounded ``np.sqrt``, radius on and off."""
+    rng = np.random.default_rng(147)
+    d, nb = 16, 9
+    sums = np.arange(140, 460)
+    ue = np.array([_squares_summing_to(int(s), d) for s in sums], np.float32)
+    ue *= rng.choice(np.float32([-1, 1]), ue.shape)
+    assert np.array_equal((ue * ue).sum(1), sums)
+    cq = rng.integers(-127, 128, (nb, d)).astype(np.int8)
+    scale = (rng.random(nb) / 50).astype(np.float32)
+    for radius in (rng.random(nb).astype(np.float32),
+                   np.zeros(nb, np.float32)):
+        got = ref.ann_block_scores_ref(*map(torch.from_numpy,
+                                            (ue, cq, scale, radius))).numpy()
+        want = (ue @ cq.astype(np.float32).T) * scale[None] \
+            + np.sqrt((ue * ue).sum(1, keepdims=True)) * radius[None]
+        np.testing.assert_array_equal(got, want)
 
 
 def test_ann_block_scores_route_rejects_cuda_on_cpu_tensors():

@@ -246,3 +246,83 @@ def test_coo_ngcf_o3_on_card_matches_plain_route(dev):
     for a, b in zip(tree_leaves(grads_k), tree_leaves(grads_p)):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+
+
+def _split_graph(case, t, rng):
+    """(indptr i64, n_nodes, src i32) for the row-split cases: one row
+    holding > 50 % of E (> 100k edges); rows of T - 1, T and T + 1 edges
+    with a row that starts exactly on a chunk boundary and trailing empty
+    rows; E = 0; and an indptr longer than n_nodes + 1."""
+    degs = [t - 1, t, t + 1, 0, 0, 5]
+    degs.append((-(sum(degs) + len(degs) + 1)) % t)   # next row on a boundary
+    degs += [3 * t, 1, 0, t - 1, 0, 0]
+    n = len(degs)
+    if case == "long_row":
+        degs = rng.zipf(1.5, 2000).clip(0, 500)
+        degs[17] = 120_000
+        degs[-5:] = 0
+        n = len(degs)
+    elif case == "no_edges":
+        degs = [0] * (2 * t + 3)
+        n = len(degs)
+    elif case == "long_indptr":
+        degs += [t + 1, 7, 2 * t]
+    indptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int64)
+    src = rng.integers(0, 500, int(indptr[-1])).astype(np.int32)
+    return indptr, n, src
+
+
+@pytest.mark.parametrize("gather", [True, False])
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+@pytest.mark.parametrize("case", ["long_row", "boundaries", "no_edges",
+                                  "long_indptr"])
+def test_spmm_kernel_splits_long_rows(dev, case, reduce, gather):
+    """The row split against the plain version: a 120k-edge row (> 50 %
+    of E), rows of T - 1, T and T + 1 edges, a row on a chunk boundary,
+    trailing empty rows, E = 0 and an over-long indptr; sum to |err| <=
+    1e-5 + 1e-5 x the sum of |terms|, max exactly; two calls bitwise
+    equal."""
+    from repro_torch.kernels.spmm import CHUNK
+    rng = np.random.default_rng(len(case))
+    indptr, n, src = _split_graph(case, CHUNK, rng)
+    rows = 500 if gather else len(src)
+    x = torch.from_numpy(rng.standard_normal((rows, 128)).astype(np.float32)
+                         ).to(dev)
+    args = (torch.from_numpy(indptr).to(dev), torch.from_numpy(src).to(dev), n)
+    got = ops.spmm_csr(reduce, x, *args, gather=gather)
+    again = ops.spmm_csr(reduce, x, *args, gather=gather)
+    assert torch.equal(got, again)
+    want = ref.spmm_csr_ref(reduce, x, *args, gather=gather)
+    if reduce == "max":
+        assert torch.equal(got, want)
+    else:
+        abs_sum = ref.spmm_csr_ref("sum", x.abs(), *args, gather=gather)
+        assert bool(((got - want).abs() <= 1e-5 + 1e-5 * abs_sum).all())
+    empty = torch.from_numpy(np.diff(indptr[: n + 1]) == 0).to(dev)
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("b,nb,d,offset", [
+    (64, 832, 128, 0),      # the serving batch: 16 x 32 tiles, 16-byte loads
+    (37, 833, 144, 0),      # ragged B and nb on the serving tiles
+    (37, 833, 144, 1),      # ue 4 bytes off 16-byte alignment: scalar loads
+    (50, 13, 130, 0),       # D % 16 != 0
+    (20, 100, 256, 0),      # D = 256: two staged chunks (224 + 32 columns)
+    (9, 40, 300, 0),        # D = 300: two chunks, the second ragged
+    (1000, 1100, 48, 0),    # the sweep tiles, ragged on both axes
+])
+def test_ann_block_scores_tiles_bitwise_on_integers(dev, b, nb, d, offset):
+    """Both tile shapes and both load widths, bitwise against the plain
+    version on integer-valued users, radius on and off."""
+    rng = np.random.default_rng(b * nb + d)
+    flat = torch.from_numpy(rng.integers(-3, 4, b * d + offset)
+                            .astype(np.float32)).to(dev)
+    ue = flat[offset:].view(b, d)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-127, 128, (nb, d)).astype(np.int8),
+        (rng.random(nb) / 50).astype(np.float32),
+        rng.random(nb).astype(np.float32))]
+    for radius in (args[2], torch.zeros_like(args[2])):
+        got = ops.ann_block_scores(ue, args[0], args[1], radius)
+        assert torch.equal(got, ref.ann_block_scores_ref(ue, args[0], args[1],
+                                                         radius))
