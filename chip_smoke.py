@@ -10,11 +10,14 @@ Phases (any failure exits non-zero before the last line is printed):
   2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, in parallel) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at
-     adversarial shapes (for ``spmm_csr`` also its row split's cases, each
-     called twice and required bitwise equal) and at the main paths'
-     shapes, and time kernel, plain version and (where one exists) a
-     single PyTorch library call; ``ann_block_scores`` and its library
-     call also on the device alone (a CUDA graph replay) and on the host;
+     adversarial shapes (for ``spmm_csr`` and ``hadamard_spmm`` also their
+     row split's cases, each called twice and required bitwise equal; for
+     ``fused_topk_score`` k = 300 and 2,000 and ties across its split
+     boundaries) and at the main paths' shapes, and time kernel, plain
+     version and (where one exists) a single PyTorch library call, or a
+     yardstick of a few calls where none exists; ``ann_block_scores`` and
+     its library call also on the device alone (a CUDA graph replay) and
+     on the host;
   4. drive the serving path at the LightGCN FULL width
      (``src/repro/configs/lightgcn.py:7``: 349,184 users x 53,248 items,
      D = 128, 3 layers) with 2^24 requested edges: data -> BipartiteCSR
@@ -28,7 +31,9 @@ Phases (any failure exits non-zero before the last line is printed):
      behind a 4,096-row hot-row cache (bitwise equal to the device
      tables on the same batches); the same with the int8 store (held
      against the plain route on a sample); plus the pinned host-to-device
-     bandwidth;
+     bandwidth; then k = 300 (past the top-K kernel's old cap) through
+     the streaming top-K's fused route, ``ann_topk`` and
+     ``evaluate_embeddings`` (``large_k``);
   6. drive the training path at the NGCF FULL width
      (``src/repro/configs/ngcf.py:21``: the same users, items and D,
      target batch 150,528) on the same graph, with depth cut from 3 to 2
@@ -71,6 +76,9 @@ SEED = 0
 K, ITEM_BLOCK, USER_BATCH = 20, 1024, 256
 MAX_BATCH, MAX_WAIT_US, N_REQUESTS, ARRIVAL_US = 64, 1_000, 1_024, 50
 N_EVAL_USERS = 16_384
+# past fused_topk_score's old cap of 256: the k of the large_k phase, over
+# the first LARGE_K_USERS held-out users
+LARGE_K, LARGE_K_USERS = 300, 1_024
 N_SAMPLE = 256
 RTOL = ATOL = 1e-5         # fp32 sums in another order than the plain version
 # ANN serving: index blocks of 64 items (832 blocks), 104 kept at 0.125
@@ -112,9 +120,11 @@ TOLERANCE = {
     "fused_topk_score": "ids and scores bitwise on integer-valued inputs; "
                         f"else scores allclose rtol={RTOL} atol={ATOL} and "
                         "ids equal except at near-ties",
-    "hadamard_spmm": "bitwise on integer-valued inputs; adversarial: "
-                     f"allclose rtol={RTOL} atol={ATOL}; main: |err| <= "
-                     f"{ATOL} + {RTOL} * sum of |terms| per element",
+    "hadamard_spmm": "bitwise on integer-valued inputs (row-split cases "
+                     "included, epilogue on and off); adversarial: "
+                     f"allclose rtol={RTOL} atol={ATOL}; row-split cases and "
+                     f"main: |err| <= {ATOL} + {RTOL} * sum of |terms| per "
+                     "element; repeated calls bitwise",
     "ann_block_scores": "bitwise on integer-valued users (radius on and "
                         f"off); else allclose rtol={RTOL} atol={ATOL}",
     "sddmm": "bitwise on integer-valued inputs and on 'mul' at the main "
@@ -304,6 +314,7 @@ def check_spmm(torch, dev, rng) -> float:
     (``split_graph``), each for sum and max, gather on and off, each
     called twice and required bitwise equal."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmm import CHUNK as SPMM_CHUNK
     from repro_torch.kernels.spmm import build_csr_by_dst
     worst = 0.0
     for n, e, d, gather in [(1000, 5000, 100, True), (1000, 5000, 128, True),
@@ -328,7 +339,7 @@ def check_spmm(torch, dev, rng) -> float:
                                      f"spmm_csr {reduce} n={n} e={e} d={d}"))
             require(bool((got[empty] == 0).all()), "spmm empty row != 0")
     for case in SPLIT_CASES:
-        indptr, n, src = split_graph(case, rng)
+        indptr, n, src = split_graph(case, rng, SPMM_CHUNK)
         for gather in (True, False):
             rows = SPLIT_SRC_ROWS if gather else len(src)
             v = torch.from_numpy(rng.standard_normal((rows, EMBED_DIM))
@@ -356,15 +367,14 @@ def check_spmm(torch, dev, rng) -> float:
     return worst
 
 
-def split_graph(case, rng):
+def split_graph(case, rng, t):
     """(indptr i64, n_nodes, src i32) for the row-split cases, T = the
-    kernel's chunk: 'long_row' one row of 120,000 edges (> 50 % of E) in a
-    Zipf graph with trailing empty rows; 'boundaries' rows of T - 1, T and
+    kernel's chunk ``t``: 'long_row' one row of 120,000 edges (> 50 % of
+    E) in a Zipf graph with trailing empty rows; 'boundaries' rows of T - 1, T and
     T + 1 edges, empty rows, a row that starts exactly on a chunk
     boundary (merge position indptr[v] + v a multiple of T) and trailing
     empty rows; 'no_edges' E = 0; 'long_indptr' the boundaries graph
     called with 3 rows fewer than its indptr holds."""
-    from repro_torch.kernels.spmm import CHUNK as t
     degs = [t - 1, t, t + 1, 0, 0, 5]
     degs.append((-(sum(degs) + len(degs) + 1)) % t)
     degs += [3 * t, 1, 0, t - 1, 0, 0]
@@ -440,20 +450,35 @@ def _topk_case(rng, case):
     elif case == "empty_seen":
         seen = np.zeros((b, 0), np.int32)
         mask = np.zeros((b, 0), bool)
-    elif case == "k_max":
+    elif case == "k_max":                     # the old cap of the kernel
         k, ni = 256, 3000
         ie = rng.integers(-2, 3, (ni, d)).astype(np.float32)
+    elif case in ("k_300", "k_2000"):         # past it, with forced ties
+        k, ni = (300, 3000) if case == "k_300" else (2000, 5000)
+        ie = np.repeat(rng.integers(-2, 3, (ni // 3 + 1, d))
+                       .astype(np.float32), 3, axis=0)[:ni]
+        seen = rng.integers(0, ni, (b, L)).astype(np.int32)
+    elif case == "ties_across_splits":        # one tile's rows over and over
+        from repro_torch.kernels.topk_score import ITEM_TILE
+        b, ni = 70, 4000                      # two user tiles, 32 item tiles
+        ue = rng.integers(-2, 3, (b, d)).astype(np.float32)
+        ie = np.tile(ie[:ITEM_TILE], (-(-ni // ITEM_TILE), 1))[:ni]
+        seen = rng.integers(0, ni, (b, L)).astype(np.int32)
+        mask = rng.random((b, L)) < 0.5
     return ue, ie, seen, mask, k, ni
 
 
 def check_topk(torch, dev, rng) -> float:
     """Integer-valued inputs (ids and scores bitwise): forced ties, -0.0,
     K > catalogue, fully masked users, an empty seen list, D % 4 != 0,
-    K at its maximum; plus real-valued scores (near-tie rule)."""
+    K = 256 (the old cap), K = 300 and 2,000 with forced ties, ties that
+    straddle the kernel's split boundaries; plus real-valued scores
+    (near-tie rule)."""
     from repro_torch.kernels import ops, ref
     worst = 0.0
     for case in ("integer_ties", "neg_zero", "k_gt_catalogue", "fully_masked",
-                 "ragged_d", "empty_seen", "k_max", "float"):
+                 "ragged_d", "empty_seen", "k_max", "k_300", "k_2000",
+                 "ties_across_splits", "float"):
         ue, ie, seen, mask, k, ni = _topk_case(rng, case)
         if case == "float":
             ue = rng.standard_normal(ue.shape).astype(np.float32)
@@ -518,6 +543,64 @@ def check_hadamard(torch, dev, rng) -> float:
         empty = torch.from_numpy(np.diff(indptr) == 0).to(dev)
         require(bool(empty.any()), "hadamard case has no empty row")
         require(bool((got[empty] == 0).all()), "hadamard empty row != 0")
+    return max(worst, check_hadamard_split(torch, dev, rng))
+
+
+def check_hadamard_split(torch, dev, rng) -> float:
+    """The row split on ``split_graph``'s cases at the kernel's chunk (a
+    real-valued Zipf graph whose longest row holds 120,000 edges, rows of
+    T - 1, T and T + 1 edges, a row on a chunk boundary, empty and trailing
+    rows, E = 0, an over-long indptr), general and ``y_is_dst`` indices,
+    integer- and real-valued, with and without the epilogue (negative
+    scales included): integers bitwise, reals within ATOL + RTOL x the sum
+    of |terms|; every call made twice and required bitwise equal."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hadamard_spmm import CHUNK
+    worst = 0.0
+    for case in SPLIT_CASES:
+        indptr, n, x_idx = split_graph(case, rng, CHUNK)
+        n_y = len(indptr) - 1
+        if case == "long_row":
+            require(int(np.diff(indptr).max()) >= 100_000,
+                    "hadamard long row holds < 100,000 edges")
+        empty = torch.from_numpy(np.diff(indptr[:n + 1]) == 0).to(dev)
+        for structure in ("general", "y_is_dst"):
+            y_idx = (np.repeat(np.arange(n_y), np.diff(indptr))
+                     if structure == "y_is_dst"
+                     else rng.integers(0, n_y, len(x_idx))).astype(np.int32)
+            args = (torch.from_numpy(indptr).to(dev),
+                    torch.from_numpy(x_idx).to(dev),
+                    torch.from_numpy(y_idx).to(dev), n)
+            for integer in (True, False):
+                if integer:
+                    x, y, scale = (rng.integers(-3, 4, shape).astype(np.float32)
+                                   for shape in ((SPLIT_SRC_ROWS, EMBED_DIM),
+                                                 (n_y, EMBED_DIM), n))
+                else:
+                    x, y, scale = (rng.standard_normal(shape).astype(np.float32)
+                                   for shape in ((SPLIT_SRC_ROWS, EMBED_DIM),
+                                                 (n_y, EMBED_DIM), n))
+                x, y, scale = (torch.from_numpy(a).to(dev)
+                               for a in (x, y, scale))
+                for epi in (False, True):
+                    kw = dict(scale=scale, slope=0.2) if epi else {}
+                    what = (f"hadamard_spmm split {case} {structure} "
+                            f"integer={integer} epilogue={epi}")
+                    got = ops.hadamard_spmm(x, y, *args, impl="cuda", **kw)
+                    again = ops.hadamard_spmm(x, y, *args, impl="cuda", **kw)
+                    require(torch.equal(got, again), f"{what}: two calls differ")
+                    want = ref.hadamard_spmm_ref(x, y, *args, **kw)
+                    if integer:
+                        require(torch.equal(got, want),
+                                f"{what}: not bitwise on integers")
+                    else:
+                        abs_kw = dict(scale=scale.abs()) if epi else {}
+                        abs_sum = ref.hadamard_spmm_ref(x.abs(), y.abs(), *args,
+                                                        **abs_kw)
+                        worst = max(worst, close_sum(torch, got, want, abs_sum,
+                                                     what))
+                    require(bool((got[empty] == 0).all()),
+                            f"{what}: empty row != 0")
     return worst
 
 
@@ -674,11 +757,15 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
         ue, item_f, seen, smask, impl="cuda", **kw), reps=10)
     t_p = cuda_ms(torch, lambda: ref.fused_topk_score_ref(
         ue, item_f, seen, smask, **kw), reps=3, warmup=1)
+    t_y = cuda_ms(torch, topk_yardstick(torch, ue, item_f, seen, smask), reps=10)
     b_ms, b_by = bound(ue.numel() * 4 + item_f.numel() * 4 + seen.numel() * 5
                        + 2 * ue.shape[0] * K * 4,
                        2.0 * ue.shape[0] * N_ITEMS * EMBED_DIM)
     out["fused_topk_score"] = dict(
         ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        three_call_yardstick="torch.matmul, scatter_ of the seen mask, "
+                             "torch.topk (no tie order)",
+        yardstick_ms=t_y,
         work=f"B={ue.shape[0]} I={N_ITEMS} D={EMBED_DIM} k={K} "
              f"seen_len={seen.shape[1]}", near_tie_id_swaps=excused)
     for name, rec in out.items():
@@ -686,6 +773,83 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
         emit({"kernel": name, "kernel_ms": rec["ms"], **detail,
               "max_abs_err": errs[name], "tolerance": TOLERANCE[name]})
     return out
+
+
+def topk_yardstick(torch, ue, table, seen, smask, k=K):
+    """The library yardstick of one fused top-K call, timed only: three
+    PyTorch calls (``torch.matmul`` into a buffer with one spare column,
+    ``scatter_`` of -inf over the live seen ids, ``torch.topk``); the
+    spare column takes the padded seen slots.  ``torch.topk`` promises no
+    tie order, so it computes the same set up to ties, not the kernel's
+    (score desc, id asc) order."""
+    n = table.shape[0]
+    padded = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+    cols = torch.where(smask, seen.long(), n)
+    buf = torch.empty((ue.shape[0], n + 1), device=ue.device)
+
+    def call():
+        torch.matmul(ue, padded.T, out=buf)
+        buf.scatter_(1, cols, float("-inf"))
+        return torch.topk(buf[:, :n], k, dim=1)
+
+    return call
+
+
+def large_k_routes(torch, g, test, user_f, item_f, index, eval_users):
+    """k = 300, past the kernel's old cap of 256, on the card: the
+    streaming top-K's fused route and ``ann_topk`` at keep 1.0 over the
+    first LARGE_K_USERS held-out users, each against the block-major route
+    on the card (ids equal except at near-ties), and
+    ``evaluate_embeddings`` over all held-out users."""
+    from repro_torch import kernels
+    from repro_torch.data import synth
+    from repro_torch.eval import evaluate_embeddings
+    from repro_torch.eval.topk import streaming_topk
+    from repro_torch.serving import ann_topk
+    seen_ip, seen_it = g.seen_csr()
+    kw = dict(user_ids=np.asarray(eval_users[:LARGE_K_USERS], np.int32),
+              seen_indptr=seen_ip, seen_items=seen_it, user_batch=USER_BATCH,
+              item_block=ITEM_BLOCK)
+    before = kernels.launch_counts()["fused_topk_score"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_f, i_f = streaming_topk(user_f, item_f, LARGE_K, **kw)
+    fused_s = time.perf_counter() - t0
+    require(kernels.launch_counts()["fused_topk_score"] > before,
+            "streaming_topk at k=300 did not launch the kernel")
+    t0 = time.perf_counter()
+    s_b, i_b = streaming_topk(user_f, item_f, LARGE_K, fused=False, **kw)
+    block_s = time.perf_counter() - t0
+    swaps_f = topk_agree(s_f, i_f, s_b, i_b,
+                         f"streaming_topk k={LARGE_K} fused vs block-major")
+    before = kernels.launch_counts()["fused_topk_score"]
+    t0 = time.perf_counter()
+    s_a, i_a = ann_topk(index, user_f, item_f, LARGE_K, keep_frac=1.0, **kw)
+    ann_s = time.perf_counter() - t0
+    require(kernels.launch_counts()["fused_topk_score"] > before,
+            "ann_topk at k=300 did not launch the kernel")
+    swaps_a = topk_agree(s_a, i_a, s_b, i_b,
+                         f"ann_topk k={LARGE_K} keep 1.0 vs block-major")
+    require(bool((i_f >= 0).all()), f"streaming_topk k={LARGE_K}: short "
+                                    "slots on a full catalogue")
+    test_pos = synth.group_by_user(test.user, test.item, N_USERS)
+    keep = np.zeros(N_USERS, bool)
+    keep[eval_users] = True
+    empty = np.zeros(0, np.int64)
+    eval_pos = [p if keep[u] else empty for u, p in enumerate(test_pos)]
+    t0 = time.perf_counter()
+    metrics = evaluate_embeddings(user_f, item_f, eval_pos, k=LARGE_K,
+                                  seen_indptr=seen_ip, seen_items=seen_it,
+                                  user_batch=USER_BATCH, item_block=ITEM_BLOCK)
+    eval_s = time.perf_counter() - t0
+    require(all(0.0 <= v <= 1.0 for v in metrics.values()),
+            f"k={LARGE_K} metrics out of [0, 1]: {metrics}")
+    emit({"phase": "large_k", "k": LARGE_K, "users": len(kw["user_ids"]),
+          "streaming_fused_s": fused_s, "streaming_block_major_s": block_s,
+          "ann_keep_all_s": ann_s, "fused_near_tie_id_swaps": swaps_f,
+          "ann_near_tie_id_swaps": swaps_a,
+          "evaluate_users": int(len(eval_users)), "evaluate_s": eval_s,
+          "metrics": metrics})
 
 
 def forward(torch, g, params, model, layer_ms):
@@ -1757,6 +1921,7 @@ def main() -> int:
                                           exact)
         times = time_kernels(torch, g, params, user_f, item_f, eval_users,
                              errs)
+        large_k_routes(torch, g, test, user_f, item_f, index, eval_users)
         times["ann_block_scores"] = time_ann(torch, index, user_f, users,
                                              errs)
     del g, params, user_f, item_f, index

@@ -35,8 +35,8 @@ SIGNATURES = {
                          _I, _P),
     },
     "hadamard_spmm": {
-        "hadamard_spmm_f32": (_P, _P, _P, _P, _P, _P, _I, _F, _P, _I, _I, _I,
-                              _I, _P),
+        "hadamard_spmm_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _I,
+                              _L, _L, _I, _I, _I, _P),
     },
     "embedding_bag": {
         "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -49,11 +49,9 @@ SIGNATURES = {
     },
     "topk_score": {
         "fused_topk_score_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _L, _I, _I, _I, _I, _I, _I, _P),
-        "fused_topk_score_smem": (_I, _I),
+                                 _L, _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
-_RESTYPES = {"fused_topk_score_smem": _L}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -105,7 +103,7 @@ def _open(name: str, path: pathlib.Path) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
-        f.restype = _RESTYPES.get(fn, _I)
+        f.restype = _I
     lib.repro_error_string.argtypes = [_I]
     lib.repro_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

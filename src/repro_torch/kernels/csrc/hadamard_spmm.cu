@@ -11,25 +11,48 @@
 // 2*E*4 bytes of indices and n*D*4 bytes written. Arithmetic is one
 // multiply and one add per gathered pair of floats.
 //
-// Design: the same layout as spmm_csr.cu. One warp owns one destination
-// row, so no atomics and no shared memory are needed. Lanes hold the row's
-// D floats in registers: one float4 per lane per 128 columns when
-// D % 4 == 0 (16-byte loads), else one float per lane per 32 columns. The
-// warp loads 32 (x_idx, y_idx) pairs at a time, one pair per lane, and
-// broadcasts them with __shfl_sync; the edge loop is unrolled by kUnroll so
-// 2 * kUnroll row loads are in flight per warp. Edges are accumulated in CSR
-// order, each term rounded as a product and then added (no FMA contraction),
-// as the plain version rounds it. The Pallas kernel's double-buffered row
-// DMAs become the unrolled in-flight loads. Known slow spot, as for
-// spmm_csr: a warp per row leaves a long tail on Zipf graphs (one item row
-// can hold 1.7% of all edges); splitting long rows is future work.
+// Design: the edges are split evenly, not the rows, as in spmm_csr.cu, so
+// the Zipf degree tail (one item row holds 1.7% of all edges) no longer
+// sets the time. A merge-path partition (row_split.cuh) cuts rows + edges
+// into chunks of `chunk` items; one warp walks one chunk. A row that ends
+// in its chunk is summed in registers and written directly, with the
+// epilogue. The part of a row that crosses a chunk boundary leaves a
+// pre-epilogue partial sum in a workspace (two slots per chunk: head and
+// open), and a second pass, the combine kernel, sums each split row's
+// partials in chunk order and only then applies the scale and the
+// leaky-relu, so the epilogue never sees a partial sum. No atomics: the
+// result is the same bits on every call.
+// Lanes hold the row's D floats in registers: one float4 per lane per 128
+// columns when D % 4 == 0 (16-byte loads), else one float per lane per 32
+// columns. The warp loads 32 (x_idx, y_idx) pairs at a time, one pair per
+// lane, and broadcasts them with __shfl_sync; the edge loop is unrolled by
+// kUnroll so that 2 * kUnroll row loads are in flight per warp. (Keeping
+// the y row in registers while a group's y_idx repeats, as it does where y
+// rides the destination, measured slower: the second code path cost
+// registers and spills.)
+// Edges are accumulated in CSR order, each term rounded as a product and
+// then added (no FMA contraction), as the plain version rounds it.
+// kUnroll and the minimum resident blocks can be set at build time
+// (REPRO_HADAMARD_UNROLL, REPRO_HADAMARD_MIN_BLOCKS) for a sweep
+// (tools/hadamard_sweep.py); the chunk size is an argument.
 #include <cuda_runtime.h>
+
+#include "row_split.cuh"
+
+#ifndef REPRO_HADAMARD_UNROLL
+#define REPRO_HADAMARD_UNROLL 4
+#endif
+#ifndef REPRO_HADAMARD_MIN_BLOCKS
+#define REPRO_HADAMARD_MIN_BLOCKS 4
+#endif
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = REPRO_HADAMARD_UNROLL;
+constexpr int kMinBlocks = REPRO_HADAMARD_MIN_BLOCKS;
 
 __device__ __forceinline__ float mac(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(a, b));
@@ -40,9 +63,15 @@ __device__ __forceinline__ float4 mac(float4 acc, float4 a, float4 b) {
                      mac(acc.z, a.z, b.z), mac(acc.w, a.w, b.w));
 }
 
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(add(a.x, b.x), add(a.y, b.y), add(a.z, b.z), add(a.w, b.w));
+}
+
 __device__ __forceinline__ float epi(float v, float s, bool leaky, float slope) {
-  v = v * s;
-  return (leaky && !(v >= 0.f)) ? v * slope : v;
+  v = __fmul_rn(v, s);
+  return (leaky && !(v >= 0.f)) ? __fmul_rn(v, slope) : v;
 }
 
 __device__ __forceinline__ float4 epi(float4 v, float s, bool leaky, float slope) {
@@ -59,55 +88,127 @@ __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 
-// T = float4 (D % 4 == 0, 16-byte aligned) or float (any D).
+// One warp sums x[x_idx[e]] * y[y_idx[e]] over the edges [lo, hi) at column
+// `col` (in units of T), in CSR order. Every lane calls it with the same lo
+// and hi.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-hadamard_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                const long long* __restrict__ indptr, const int* __restrict__ x_idx,
-                const int* __restrict__ y_idx, const float* __restrict__ scale,
-                int leaky, float slope, float* __restrict__ out, int n_rows, int d) {
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // whole warp leaves together
+__device__ __forceinline__ T hadamard_edges(const T* __restrict__ xs, const T* __restrict__ ys,
+                                            const int* __restrict__ x_idx,
+                                            const int* __restrict__ y_idx, long long lo,
+                                            long long hi, int width, int col, bool active,
+                                            int lane) {
+  T acc = zero<T>();
+  for (long long base = lo; base < hi; base += 32) {
+    const int cnt = (int)min(32LL, hi - base);
+    int mx = 0, my = 0;
+    if (lane < cnt) {
+      mx = x_idx[base + lane];
+      my = y_idx[base + lane];
+    }
+    for (int j = 0; j < cnt; j += kUnroll) {
+      T a[kUnroll], b[kUnroll];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int rx = __shfl_sync(kFull, mx, (j + q) & 31);
+        const int ry = __shfl_sync(kFull, my, (j + q) & 31);
+        if (active && j + q < cnt) {
+          a[q] = xs[(long long)rx * width + col];
+          b[q] = ys[(long long)ry * width + col];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        if (active && j + q < cnt) acc = mac(acc, a[q], b[q]);
+      }
+    }
+  }
+  return acc;
+}
+
+// T = float4 (D % 4 == 0, 16-byte aligned) or float (any D). One warp per
+// chunk; partial is f32[n_chunks, 2, d]: slot 0 the head, slot 1 the open
+// row, both before the epilogue.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+hadamard_chunk_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      const long long* __restrict__ indptr, const int* __restrict__ x_idx,
+                      const int* __restrict__ y_idx, const long long* __restrict__ chunk_row,
+                      const float* __restrict__ scale, int leaky, float slope,
+                      float* __restrict__ out, float* __restrict__ partial, int n_rows,
+                      long long n_chunks, int d, long long chunk) {
+  const long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= n_chunks) return;  // whole warp leaves together
   const int lane = threadIdx.x & 31;
-  const long long lo = indptr[row];
-  const long long hi = indptr[row + 1];
+  const row_split::Chunk ch = row_split::bounds(indptr, chunk_row, c, chunk);
   constexpr int kPer = sizeof(T) / sizeof(float);
   const int width = d / kPer;  // columns in units of T
   const T* xs = reinterpret_cast<const T*>(x);
   const T* ys = reinterpret_cast<const T*>(y);
-  T* dst = reinterpret_cast<T*>(out) + row * width;
-  const float s = scale != nullptr ? scale[row] : 1.f;
+  T* dst = reinterpret_cast<T*>(out);
+  T* head = reinterpret_cast<T*>(partial) + 2 * c * width;
+  T* open = head + width;
 
   for (int c0 = 0; c0 < width; c0 += 32) {
-    const int c = c0 + lane;
-    const bool active = c < width;
-    T acc = zero<T>();
-    for (long long base = lo; base < hi; base += 32) {
-      const int cnt = (int)min(32LL, hi - base);
-      long long mx = 0, my = 0;
-      if (lane < cnt) {
-        mx = x_idx[base + lane];
-        my = y_idx[base + lane];
-      }
-      for (int j = 0; j < cnt; j += kUnroll) {
-        T a[kUnroll], b[kUnroll];
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          const long long rx = __shfl_sync(kFull, mx, (j + q) & 31);
-          const long long ry = __shfl_sync(kFull, my, (j + q) & 31);
-          if (active && j + q < cnt) {
-            a[q] = xs[rx * width + c];
-            b[q] = ys[ry * width + c];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          if (active && j + q < cnt) acc = mac(acc, a[q], b[q]);
-        }
-      }
+    const int col = c0 + lane;
+    const bool active = col < width;
+    for (long long r = ch.i0; r < ch.i1; ++r) {
+      const long long lo = r == ch.i0 ? ch.j0 : indptr[r];
+      const T acc = hadamard_edges<T>(xs, ys, x_idx, y_idx, lo, indptr[r + 1], width, col,
+                                      active, lane);
+      if (!active) continue;
+      if (r == ch.i0 && ch.head_split)
+        head[col] = acc;
+      else
+        dst[r * width + col] = epi(acc, scale != nullptr ? scale[r] : 1.f, leaky != 0, slope);
     }
-    if (active) dst[c] = epi(acc, s, leaky != 0, slope);
+    if (ch.i1 < n_rows) {
+      const long long lo = ch.i1 == ch.i0 ? ch.j0 : indptr[ch.i1];
+      const T acc = hadamard_edges<T>(xs, ys, x_idx, y_idx, lo, ch.j1, width, col, active,
+                                      lane);
+      if (active) open[col] = acc;
+    }
   }
+}
+
+// One warp per chunk; the chunks that complete a split row sum its partials
+// (the open slots of the chunks it crossed, then their own head) in chunk
+// order, then apply the epilogue once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+hadamard_combine_kernel(const long long* __restrict__ indptr,
+                        const long long* __restrict__ chunk_row,
+                        const float* __restrict__ partial, const float* __restrict__ scale,
+                        int leaky, float slope, float* __restrict__ out, long long n_chunks,
+                        int d, long long chunk) {
+  const long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= n_chunks) return;
+  const row_split::Chunk ch = row_split::bounds(indptr, chunk_row, c, chunk);
+  if (!ch.head_split) return;
+  const long long first = row_split::first_chunk(indptr, ch.i0, chunk);
+  constexpr int kPer = sizeof(T) / sizeof(float);
+  const int width = d / kPer;
+  const T* part = reinterpret_cast<const T*>(partial);
+  T* dst = reinterpret_cast<T*>(out) + ch.i0 * width;
+  const float s = scale != nullptr ? scale[ch.i0] : 1.f;
+  for (int col = threadIdx.x & 31; col < width; col += 32) {
+    T acc = part[(2 * first + 1) * width + col];
+    for (long long k = first + 1; k < c; ++k) acc = add(acc, part[(2 * k + 1) * width + col]);
+    acc = add(acc, part[2 * c * width + col]);
+    dst[col] = epi(acc, s, leaky != 0, slope);
+  }
+}
+
+template <typename T>
+void launch(const float* x, const float* y, const long long* indptr, const int* x_idx,
+            const int* y_idx, const long long* chunk_row, const float* scale, int leaky,
+            float slope, float* partial, float* out, int n_rows, long long n_chunks, int d,
+            long long chunk, cudaStream_t stream) {
+  const long long blocks = (n_chunks + kWarps - 1) / kWarps;
+  hadamard_chunk_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      x, y, indptr, x_idx, y_idx, chunk_row, scale, leaky, slope, out, partial, n_rows,
+      n_chunks, d, chunk);
+  hadamard_combine_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      indptr, chunk_row, partial, scale, leaky, slope, out, n_chunks, d, chunk);
 }
 
 }  // namespace
@@ -117,28 +218,32 @@ extern "C" const char* repro_error_string(int code) {
 }
 
 // x f32[Nx, d]; y f32[Ny, d]; indptr i64[n_rows + 1]; x_idx, y_idx i32[E];
-// scale f32[n_rows] or null; leaky != 0 applies the leaky-relu with slope;
-// out f32[n_rows, d]. vec4 != 0 promises d % 4 == 0 and 16-byte aligned rows.
+// chunk_row i64[n_chunks + 1] (row_split.cuh); partial f32[n_chunks, 2, d]
+// workspace; scale f32[n_rows] or null; leaky != 0 applies the leaky-relu
+// with slope; out f32[n_rows, d]. vec4 != 0 promises d % 4 == 0 and 16-byte
+// aligned rows. n_chunks must be > 0.
 extern "C" int hadamard_spmm_f32(const void* x, const void* y, const void* indptr,
-                                 const void* x_idx, const void* y_idx, const void* scale,
-                                 int leaky, float slope, void* out, int n_rows, int d,
-                                 int vec4, int device, void* stream) {
+                                 const void* x_idx, const void* y_idx, const void* chunk_row,
+                                 void* partial, const void* scale, int leaky, float slope,
+                                 void* out, int n_rows, long long n_chunks, long long chunk,
+                                 int d, int vec4, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_rows + kThreads / 32 - 1) / (kThreads / 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* yf = static_cast<const float*>(y);
   const long long* ip = static_cast<const long long*>(indptr);
   const int* xi = static_cast<const int*>(x_idx);
   const int* yi = static_cast<const int*>(y_idx);
+  const long long* cr = static_cast<const long long*>(chunk_row);
   const float* sc = static_cast<const float*>(scale);
+  float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   if (vec4)
-    hadamard_kernel<float4><<<blocks, kThreads, 0, st>>>(xf, yf, ip, xi, yi, sc, leaky,
-                                                         slope, o, n_rows, d);
+    launch<float4>(xf, yf, ip, xi, yi, cr, sc, leaky, slope, p, o, n_rows, n_chunks, d, chunk,
+                   st);
   else
-    hadamard_kernel<float><<<blocks, kThreads, 0, st>>>(xf, yf, ip, xi, yi, sc, leaky,
-                                                        slope, o, n_rows, d);
+    launch<float>(xf, yf, ip, xi, yi, cr, sc, leaky, slope, p, o, n_rows, n_chunks, d, chunk,
+                  st);
   return (int)cudaGetLastError();
 }

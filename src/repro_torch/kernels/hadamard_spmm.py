@@ -8,12 +8,16 @@ the rematerialising backward (``pipeline/sparse.py``).
 
 Bound on the H100: memory.  A call reads two source rows per edge
 (2·E·D·4 bytes of gathers), 2·E·4 bytes of indices, and writes n·D·4
-bytes; one multiply and one add per gathered pair.  The kernel follows
-``spmm_csr.cu``: a warp owns a destination row and keeps it in
-registers, so the sum needs no atomics and runs in CSR order; the
-(x_idx, y_idx) pairs are loaded 32 at a time and broadcast by shuffle.
-Its weak spot is the same Zipf degree tail: the longest row is walked by
-a single warp.
+bytes; one multiply and one add per gathered pair.  The kernel splits
+the edges, not the rows, as ``spmm_csr.cu`` does: a merge-path partition
+(``row_split.py``, ``csrc/row_split.cuh``) cuts rows + edges into chunks
+of ``CHUNK`` items and one warp walks each, so the 256k-edge item row is
+spread over ~250 warps.  Rows that end inside a chunk are summed in
+registers and written with the (scale, leaky-relu) epilogue; a row that
+crosses a chunk boundary leaves pre-epilogue partials in a workspace,
+and a second small pass sums them in chunk order and applies the
+epilogue once.  No atomics, so the output is the same bits on every
+call; no host read per call.
 
 ``hadamard_spmm_plain`` is the port of ``hadamard_spmm_xla``: given a
 caller-asserted ``structure`` on the index vectors, the Hadamard factors
@@ -32,10 +36,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, row_split
 from repro_torch.kernels import ref as _ref
 
 STRUCTURES = ("general", "y_is_dst", "x_eq_y")
+# merge items (edges + row ends) per chunk, one warp each
+CHUNK = 1024
 
 
 def _check_index(t: torch.Tensor, name: str) -> None:
@@ -80,13 +86,19 @@ def hadamard_spmm_cuda(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
         # no edges: every row aggregates to zero, and the epilogue maps
         # zero to zero (the reference returns zeros without a launch)
         return out.zero_()
+    rows = row_split.chunk_rows(indptr, n_nodes, x_idx.numel(), CHUNK)
+    n_chunks = rows.numel() - 1
+    partial = torch.empty((n_chunks, 2, d), dtype=torch.float32,
+                          device=x.device)
     vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, out))
     lib = _build.load("hadamard_spmm")
     err = lib.hadamard_spmm_f32(
         x.data_ptr(), y.data_ptr(), indptr.data_ptr(), x_idx.data_ptr(),
-        y_idx.data_ptr(), scale.data_ptr() if scale is not None else None,
+        y_idx.data_ptr(), rows.data_ptr(), partial.data_ptr(),
+        scale.data_ptr() if scale is not None else None,
         int(slope is not None), float(slope) if slope is not None else 0.0,
-        out.data_ptr(), n_nodes, d, int(vec4), x.device.index or 0,
+        out.data_ptr(), n_nodes, n_chunks, CHUNK, d, int(vec4),
+        x.device.index or 0,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, err, "hadamard_spmm")
     hadamard_spmm_cuda.launches += 1

@@ -326,3 +326,92 @@ def test_ann_block_scores_tiles_bitwise_on_integers(dev, b, nb, d, offset):
         got = ops.ann_block_scores(ue, args[0], args[1], radius)
         assert torch.equal(got, ref.ann_block_scores_ref(ue, args[0], args[1],
                                                          radius))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("case", ["long_row", "boundaries", "no_edges",
+                                  "long_indptr"])
+def test_hadamard_kernel_splits_long_rows(dev, case, epilogue, integer):
+    """The row split of hadamard_spmm against the plain version on the
+    spmm split graphs (a 120k-edge row, rows of T - 1, T and T + 1 edges,
+    a row on a chunk boundary, trailing empty rows, E = 0, an over-long
+    indptr), general indices, with and without the (scale, leaky-relu)
+    epilogue, negative scales included: bitwise on integer-valued inputs,
+    else |err| <= 1e-5 + 1e-5 x the sum of |terms|; two calls bitwise."""
+    from repro_torch.kernels.hadamard_spmm import CHUNK
+    rng = np.random.default_rng(len(case) + 10 * epilogue)
+    indptr, n, x_idx = _split_graph(case, CHUNK, rng)
+    n_y = len(indptr) - 1
+    y_idx = rng.integers(0, n_y, len(x_idx)).astype(np.int32)
+
+    def feats(*shape):
+        if integer:
+            return rng.integers(-3, 4, shape).astype(np.float32)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x = torch.from_numpy(feats(500, 128)).to(dev)
+    y = torch.from_numpy(feats(n_y, 128)).to(dev)
+    scale = torch.from_numpy(feats(n)).to(dev)
+    args = (torch.from_numpy(indptr).to(dev), torch.from_numpy(x_idx).to(dev),
+            torch.from_numpy(y_idx).to(dev), n)
+    kw = dict(scale=scale, slope=0.2) if epilogue else {}
+    got = ops.hadamard_spmm(x, y, *args, **kw)
+    assert torch.equal(got, ops.hadamard_spmm(x, y, *args, **kw))
+    want = ref.hadamard_spmm_ref(x, y, *args, **kw)
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        abs_kw = dict(scale=scale.abs()) if epilogue else {}
+        abs_sum = ref.hadamard_spmm_ref(x.abs(), y.abs(), *args, **abs_kw)
+        assert bool(((got - want).abs() <= 1e-5 + 1e-5 * abs_sum).all())
+    empty = torch.from_numpy(np.diff(indptr[: n + 1]) == 0).to(dev)
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("k", [300, 2000])
+def test_fused_topk_kernel_large_k(dev, k):
+    """Past the old cap of 256 (k = 2,000 keeps the lists in the global
+    scratch): ids and scores bitwise against the plain version on integer
+    ties, at a batch of two user tiles with the catalogue split."""
+    rng = np.random.default_rng(k)
+    ue = rng.integers(-2, 3, (70, 128)).astype(np.float32)
+    ie = np.repeat(rng.integers(-2, 3, (1700, 128)).astype(np.float32), 3, 0)
+    seen = rng.integers(0, 5100, (70, 30)).astype(np.int32)
+    mask = rng.random((70, 30)) < 0.5
+    args = [torch.from_numpy(a).to(dev) for a in (ue, ie, seen, mask)]
+    s_k, i_k = ops.fused_topk_score(*args, k=k, n_items=5100)
+    s_p, i_p = ref.fused_topk_score_ref(*args, k=k, n_items=5100,
+                                        item_block=1024)
+    assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+
+
+def test_topk_routes_at_k_300_on_card_match_plain(dev):
+    """streaming_topk's fused route and ann_topk at k = 300 launch the
+    kernel and return the plain route's ids and scores, bitwise
+    (integer-valued tables, many ties)."""
+    from repro_torch.eval.topk import streaming_topk
+    from repro_torch.serving.ann import AnnIndex, ann_topk
+    rng = np.random.default_rng(5)
+    ue = rng.integers(-2, 3, (300, 64)).astype(np.float32)
+    ie = rng.integers(-2, 3, (2000, 64)).astype(np.float32)
+    deg = rng.integers(0, 20, 300)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    items = rng.integers(0, 2000, int(indptr[-1])).astype(np.int64)
+    kw = dict(seen_indptr=indptr, seen_items=items, user_batch=128,
+              item_block=256)
+    users = np.arange(0, 300, 3, dtype=np.int32)
+    s_p, i_p = streaming_topk(ue, ie, 300, user_ids=users, impl="torch",
+                              fused=False, device=dev, **kw)
+    before = launch_counts()["fused_topk_score"]
+    s_k, i_k = streaming_topk(ue, ie, 300, user_ids=users, device=dev, **kw)
+    assert launch_counts()["fused_topk_score"] > before
+    np.testing.assert_array_equal(i_k, i_p)
+    np.testing.assert_array_equal(s_k, s_p)
+    index = AnnIndex(ie, block=32, device=dev)
+    before = launch_counts()["fused_topk_score"]
+    s_a, i_a = ann_topk(index, ue, ie, 300, keep_frac=1.0, user_ids=users,
+                        **kw)
+    assert launch_counts()["fused_topk_score"] > before
+    np.testing.assert_array_equal(i_a, i_p)
+    np.testing.assert_array_equal(s_a, s_p)

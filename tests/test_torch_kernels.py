@@ -16,7 +16,8 @@ from repro.kernels.topk_score import fused_topk_score_pallas
 from repro_torch.kernels import _build, launch_counts, ops, ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.spmm import spmm_csr_cuda
-from repro_torch.kernels.topk_score import MAX_K, fused_topk_score_cuda
+from repro_torch.kernels.topk_score import (ITEM_TILE, USER_TILE,
+                                           fused_topk_score_cuda)
 
 T = torch.from_numpy
 
@@ -237,11 +238,15 @@ def test_wrappers_refuse_cpu_tensors_and_bad_k():
     with pytest.raises(ValueError, match="CUDA"):
         embedding_bag_cuda(torch.zeros(2, 4), torch.zeros((1, 1), dtype=torch.int32),
                            torch.ones((1, 1), dtype=torch.bool))
-    with pytest.raises(ValueError, match=f"k <= {MAX_K}"):
-        fused_topk_score_cuda(torch.zeros(1, 4), torch.zeros(3, 4),
-                              torch.zeros((1, 0), dtype=torch.int32),
-                              torch.zeros((1, 0), dtype=torch.bool),
-                              k=MAX_K + 1, n_items=3)
+    topk_args = (torch.zeros(1, 4), torch.zeros(3, 4),
+                 torch.zeros((1, 0), dtype=torch.int32),
+                 torch.zeros((1, 0), dtype=torch.bool))
+    # every k is taken: k = 300, past the old cap of 256, fails on the
+    # device check, not on its size
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fused_topk_score_cuda(*topk_args, k=300, n_items=3)
+    with pytest.raises(ValueError, match="k must be >= 0"):
+        fused_topk_score_cuda(*topk_args, k=-1, n_items=3)
 
 
 def test_every_kernel_source_is_bound_and_annotated():
@@ -258,4 +263,6 @@ def test_every_kernel_source_is_bound_and_annotated():
         assert path == _build.library_path(name)      # stable name
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     topk_src = (_build.CSRC / "topk_score.cu").read_text()
-    assert f"constexpr int kMaxK = {MAX_K};" in topk_src   # wrapper's cap
+    assert f"constexpr int kUserTile = {USER_TILE};" in topk_src
+    assert f"constexpr int kItemTile = {ITEM_TILE};" in topk_src
+    assert "kMaxK" not in topk_src                          # no cap on k

@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""A/B of the port's row-split ``spmm_csr`` and shape-tiled
-``ann_block_scores`` against the versions of a parent checkout (one warp
-per destination row; 64 x 64 output tiles), on one card, in one process.
+"""A/B of the port's row-split ``hadamard_spmm`` and register-blocked
+``fused_topk_score`` against the versions of a parent checkout (one warp
+per destination row; 16 x 64 score tiles of 4 x 1 per thread), on one
+card, in one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR
 
 DIR holds an unpacked parent commit (``git archive``) whose kernels take
-the C interfaces of the one-warp-per-row ``spmm_csr`` and the 64 x 64
-tile ``ann_block_scores``.  Both versions are built with the
+the C interfaces of the one-warp-per-row ``hadamard_spmm`` and the
+16-user-tile ``fused_topk_score``.  Both versions are built with the
 same nvcc flags and run on the same inputs, in the order parent, change,
 change, parent:
-  * ``spmm_csr`` (sum, gather) over a synthetic graph with the smoke's
-    counts (53,248 destination rows, 349,184 source rows of D = 128,
-    15,084,083 edges), destination degrees Zipf(0.75) by rank (the
-    longest row ~1.7 % of E, as in the smoke's item rows), sources
-    uniform: ms per call, CUDA events around 3 calls;
-  * ``ann_block_scores`` at B = 64 and B = 16,384 against 832 int8
-    centroids of D = 128: device ms per call (100 calls in a CUDA graph,
-    ``chip_smoke.device_ms``), and bitwise agreement on integer users.
+  * ``hadamard_spmm`` (no epilogue) at NGCF's forward shapes on a
+    synthetic graph with the smoke's counts (``synthetic_graph``: 349,184
+    users, 53,248 items, D = 128, 15,084,083 edges; item degrees
+    Zipf(0.75) by rank, so the longest item row holds ~1.7 % of E, as in
+    the smoke's graph; users uniform): the item direction
+    (``hadamard_agg_item``, 53,248 rows) and the user direction
+    (``hadamard_agg_user``, 349,184 rows), y riding the destination; ms
+    per call, CUDA events around 3 calls;
+  * ``fused_topk_score``: a 256-user batch against 53,248 items, D = 128,
+    ~43 seen items per user, at k = 20 and at k = 256 (the parent's
+    largest k); ms per call, CUDA events around 20 calls.
+Each version is first held to the plain version on the same inputs.
 Prints one JSON line per measurement and a summary line last.
 """
 from __future__ import annotations
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -35,9 +41,37 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-N_DST, N_SRC, EDGES, D, ZIPF = 53_248, 349_184, 15_084_083, 128, 0.75
-ANN_NB, ANN_SHAPES = 832, (64, 16_384)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+N_USERS, N_ITEMS, EDGES, D, ZIPF = 349_184, 53_248, 15_084_083, 128, 0.75
+TOPK_B, TOPK_KS, SEEN_LEN = 256, (20, 256), 100
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+# the parent's fused_topk_score tiles (its kernels/topk_score.py)
+PARENT_USER_TILE, PARENT_ITEM_TILE = 16, 64
+
+
+def synthetic_graph(torch, dev, seed: int = 0) -> dict:
+    """Both CSR directions of a graph with the smoke's counts on ``dev``:
+    item degrees Zipf(ZIPF) by rank, each edge's user uniform.  Keys
+    ``ui_indptr``/``ui_src``/``ui_dst`` (rows = items, src = users) and
+    ``iu_*`` (rows = users, src = items); indptr i64, ids i32."""
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, N_ITEMS + 1, dtype=np.float64) ** -ZIPF
+    deg = np.floor(EDGES * w / w.sum()).astype(np.int64)
+    deg[: EDGES - int(deg.sum())] += 1
+    ui_indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])).to(dev)
+    ui_dst = torch.repeat_interleave(
+        torch.arange(N_ITEMS, dtype=torch.int32, device=dev),
+        torch.from_numpy(deg).to(dev))
+    ui_src = torch.from_numpy(rng.integers(0, N_USERS, EDGES)
+                              .astype(np.int32)).to(dev)
+    order = torch.sort(ui_src, stable=True).indices
+    iu_deg = torch.bincount(ui_src.long(), minlength=N_USERS)
+    iu_indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                           torch.cumsum(iu_deg, 0)])
+    return {"ui_indptr": ui_indptr, "ui_src": ui_src, "ui_dst": ui_dst,
+            "iu_indptr": iu_indptr, "iu_src": ui_dst[order].contiguous(),
+            "iu_dst": ui_src[order].contiguous(),
+            "longest_item_row": int(deg.max())}
 
 
 def build_parent(parent: pathlib.Path) -> dict:
@@ -45,7 +79,7 @@ def build_parent(parent: pathlib.Path) -> dict:
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
-    for name in ("spmm_csr", "ann_block_scores"):
+    for name in ("hadamard_spmm", "topk_score"):
         src = parent / "src/repro_torch/kernels/csrc" / f"{name}.cu"
         so = out_dir / f"parent_{name}.so"
         procs.append((name, so, subprocess.Popen(
@@ -54,9 +88,10 @@ def build_parent(parent: pathlib.Path) -> dict:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed on the parent's {name}.cu")
         libs[name] = ctypes.CDLL(str(so))
-    libs["spmm_csr"].spmm_csr_f32.argtypes = [_P] * 4 + [_I] * 6 + [_P]
-    libs["ann_block_scores"].ann_block_scores_f32.argtypes = \
-        [_P] * 5 + [_I] * 4 + [_P]
+    libs["hadamard_spmm"].hadamard_spmm_f32.argtypes = \
+        [_P] * 6 + [_I, _F, _P] + [_I] * 4 + [_P]
+    libs["topk_score"].fused_topk_score_f32.argtypes = \
+        [_P] * 9 + [_I, _I, _L] + [_I] * 6 + [_P]
     return libs
 
 
@@ -71,6 +106,15 @@ def events_ms(torch, fn, reps: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def turns(torch, parent_fn, change_fn, reps: int) -> dict:
+    """ms per call in the order parent, change, change, parent."""
+    times = {"parent_ms": [], "change_ms": []}
+    for who in ("parent", "change", "change", "parent"):
+        fn = parent_fn if who == "parent" else change_fn
+        times[f"{who}_ms"].append(events_ms(torch, fn, reps))
+    return times
 
 
 def main() -> int:
@@ -89,89 +133,101 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     libs = build_parent(parent)
-    _build.build_all(("spmm_csr", "ann_block_scores"))
+    _build.build_all(("hadamard_spmm", "topk_score"))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(0)
     rows = {}
 
-    # spmm_csr
-    w = np.arange(1, N_DST + 1, dtype=np.float64) ** -ZIPF
-    deg = np.floor(EDGES * w / w.sum()).astype(np.int64)
-    deg[: EDGES - int(deg.sum())] += 1
-    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])).to(dev)
-    src = torch.from_numpy(rng.integers(0, N_SRC, EDGES).astype(np.int32)
-                           ).to(dev)
-    x = torch.from_numpy(rng.standard_normal((N_SRC, D)).astype(np.float32)
-                         ).to(dev)
+    # hadamard_spmm: NGCF's forward pair, y riding the destination
+    g = synthetic_graph(torch, dev)
+    xu = torch.from_numpy(rng.standard_normal((N_USERS, D))
+                          .astype(np.float32)).to(dev)
+    xi = torch.from_numpy(rng.standard_normal((N_ITEMS, D))
+                          .astype(np.float32)).to(dev)
+    calls = {"hadamard_agg_item": (xu, xi, g["ui_indptr"], g["ui_src"],
+                                   g["ui_dst"], N_ITEMS),
+             "hadamard_agg_user": (xi, xu, g["iu_indptr"], g["iu_src"],
+                                   g["iu_dst"], N_USERS)}
+    for name, args in calls.items():
+        x, y, ip, xi_, yi_, n = args
 
-    def spmm_parent():
-        out = torch.empty((N_DST, D), device=dev)
-        err = libs["spmm_csr"].spmm_csr_f32(
-            x.data_ptr(), indptr.data_ptr(), src.data_ptr(), out.data_ptr(),
-            N_DST, D, 1, 0, 1, 0, stream)
-        if err:
-            raise RuntimeError(f"parent spmm_csr: CUDA error {err}")
-        return out
-
-    def spmm_change():
-        return ops.spmm_csr("sum", x, indptr, src, N_DST, gather=True,
-                            impl="cuda")
-
-    want = ref.spmm_csr_ref("sum", x, indptr, src, N_DST, gather=True)
-    abs_sum = ref.spmm_csr_ref("sum", x.abs(), indptr, src, N_DST,
-                               gather=True)
-    for fn, what in ((spmm_parent, "parent"), (spmm_change, "change")):
-        if not bool(((fn() - want).abs() <= 1e-5 + 1e-5 * abs_sum).all()):
-            raise RuntimeError(f"spmm_csr {what} disagrees with the plain "
-                               "version")
-    del want, abs_sum
-    times = {"parent": [], "change": []}
-    for who in ("parent", "change", "change", "parent"):
-        fn = spmm_parent if who == "parent" else spmm_change
-        times[who].append(events_ms(torch, fn, reps=3))
-    rows["spmm_csr"] = {"work": f"u2i-like: {N_DST} rows, {EDGES} edges, "
-                                f"D={D}, longest row {int(deg.max())}",
-                        "parent_ms": times["parent"],
-                        "change_ms": times["change"]}
-    print(json.dumps({"kernel": "spmm_csr", **rows["spmm_csr"]}), flush=True)
-    del x, src, indptr
-
-    # ann_block_scores
-    cq = torch.from_numpy(rng.integers(-127, 128, (ANN_NB, D))
-                          .astype(np.int8)).to(dev)
-    scale = torch.from_numpy((rng.random(ANN_NB) / 50).astype(np.float32)
-                             ).to(dev)
-    zero = torch.zeros(ANN_NB, device=dev)
-    for b in ANN_SHAPES:
-        ue = torch.from_numpy(rng.integers(-3, 4, (b, D)).astype(np.float32)
-                              ).to(dev)
-
-        def ann_parent(ue=ue, b=b):
-            out = torch.empty((b, ANN_NB), device=dev)
-            err = libs["ann_block_scores"].ann_block_scores_f32(
-                ue.data_ptr(), cq.data_ptr(), scale.data_ptr(),
-                zero.data_ptr(), out.data_ptr(), b, ANN_NB, D, 0,
-                torch.cuda.current_stream(dev).cuda_stream)
+        def had_parent(x=x, y=y, ip=ip, xi_=xi_, yi_=yi_, n=n):
+            out = torch.empty((n, D), device=dev)
+            err = libs["hadamard_spmm"].hadamard_spmm_f32(
+                x.data_ptr(), y.data_ptr(), ip.data_ptr(), xi_.data_ptr(),
+                yi_.data_ptr(), None, 0, 0.0, out.data_ptr(), n, D, 1, 0,
+                stream)
             if err:
-                raise RuntimeError(f"parent ann_block_scores: error {err}")
+                raise RuntimeError(f"parent hadamard_spmm: CUDA error {err}")
             return out
 
-        def ann_change(ue=ue):
-            return ops.ann_block_scores(ue, cq, scale, zero, impl="cuda")
+        def had_change(args=args):
+            return ops.hadamard_spmm(*args, impl="cuda")
 
-        want = ref.ann_block_scores_ref(ue, cq, scale, zero)
-        for fn, what in ((ann_parent, "parent"), (ann_change, "change")):
-            if not torch.equal(fn(), want):
-                raise RuntimeError(f"ann_block_scores {what} not bitwise")
-        times = {"parent": [], "change": []}
-        for who in ("parent", "change", "change", "parent"):
-            fn = ann_parent if who == "parent" else ann_change
-            times[who].append(chip_smoke.device_ms(torch, fn))
-        rows[f"ann_block_scores B={b}"] = {
-            "work": f"B={b} nb={ANN_NB} D={D}", "device": "device_ms",
-            "parent_ms": times["parent"], "change_ms": times["change"]}
-        print(json.dumps({"kernel": "ann_block_scores",
-                          **rows[f"ann_block_scores B={b}"]}), flush=True)
+        want = ref.hadamard_spmm_ref(*args)
+        abs_sum = ref.hadamard_spmm_ref(x.abs(), y.abs(), ip, xi_, yi_, n)
+        for fn, what in ((had_parent, "parent"), (had_change, "change")):
+            if not bool(((fn() - want).abs() <= 1e-5 + 1e-5 * abs_sum).all()):
+                raise RuntimeError(f"hadamard_spmm {what} disagrees with the "
+                                   "plain version")
+        del want, abs_sum
+        rows[name] = {"work": f"{n} rows, {xi_.numel()} edges, D={D}, "
+                              f"longest item row {g['longest_item_row']}",
+                      **turns(torch, had_parent, had_change, reps=3)}
+        print(json.dumps({"kernel": "hadamard_spmm", "call": name,
+                          **rows[name]}), flush=True)
+    del g, calls, xu, xi
+    torch.cuda.empty_cache()
+
+    # fused_topk_score: one 256-user batch against the whole catalogue
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ue = torch.from_numpy(rng.standard_normal((TOPK_B, D))
+                          .astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.standard_normal((N_ITEMS, D))
+                             .astype(np.float32)).to(dev)
+    seen = torch.from_numpy(rng.integers(0, N_ITEMS, (TOPK_B, SEEN_LEN))
+                            .astype(np.int32)).to(dev)
+    smask = torch.from_numpy(rng.random((TOPK_B, SEEN_LEN)) < 0.43).to(dev)
+    n_tiles = math.ceil(N_ITEMS / PARENT_ITEM_TILE)
+    splits = max(1, min(n_tiles, 65_535, math.ceil(
+        2 * sms / math.ceil(TOPK_B / PARENT_USER_TILE))))
+    per = math.ceil(n_tiles / splits)
+    splits = math.ceil(n_tiles / per)
+    for k in TOPK_KS:
+        part_s = torch.empty((splits, TOPK_B, k), device=dev)
+        part_i = torch.empty((splits, TOPK_B, k), dtype=torch.int32,
+                             device=dev)
+        bits = torch.empty((TOPK_B, math.ceil(N_ITEMS / 32)),
+                           dtype=torch.int32, device=dev)
+
+        def topk_parent(k=k, part_s=part_s, part_i=part_i, bits=bits):
+            out_s = torch.empty((TOPK_B, k), device=dev)
+            out_i = torch.empty((TOPK_B, k), dtype=torch.int32, device=dev)
+            err = libs["topk_score"].fused_topk_score_f32(
+                ue.data_ptr(), table.data_ptr(), seen.data_ptr(),
+                smask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                part_s.data_ptr(), part_i.data_ptr(), bits.data_ptr(),
+                TOPK_B, D, N_ITEMS, N_ITEMS, SEEN_LEN, k, per, splits, 0,
+                stream)
+            if err:
+                raise RuntimeError(f"parent fused_topk_score: error {err}")
+            return out_s, out_i
+
+        def topk_change(k=k):
+            return ops.fused_topk_score(ue, table, seen, smask, k=k,
+                                        n_items=N_ITEMS, impl="cuda")
+
+        s_p, i_p = ref.fused_topk_score_ref(ue, table, seen, smask, k=k,
+                                            n_items=N_ITEMS, item_block=1024)
+        for fn, what in ((topk_parent, "parent"), (topk_change, "change")):
+            s_k, i_k = fn()
+            chip_smoke.topk_agree(s_k.cpu(), i_k.cpu(), s_p.cpu(), i_p.cpu(),
+                                  f"fused_topk_score k={k} {what}")
+        key = f"fused_topk_score k={k}"
+        rows[key] = {"work": f"B={TOPK_B} I={N_ITEMS} D={D} k={k}",
+                     **turns(torch, topk_parent, topk_change, reps=20)}
+        print(json.dumps({"kernel": "fused_topk_score", "k": k,
+                          **rows[key]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ab": {k: {"parent_ms": min(v["parent_ms"]),
                                  "change_ms": min(v["change_ms"])}
