@@ -15,9 +15,9 @@ Phases (any failure exits non-zero before the last line is printed):
      ``fused_topk_score`` k = 300 and 2,000 and ties across its split
      boundaries) and at the main paths' shapes, and time kernel, plain
      version and (where one exists) a single PyTorch library call, or a
-     yardstick of a few calls where none exists; ``ann_block_scores`` and
-     its library call also on the device alone (a CUDA graph replay) and
-     on the host;
+     yardstick of a few calls where none exists; ``ann_block_scores``,
+     ``embedding_bag`` and their library calls also on the device alone (a
+     CUDA graph replay) and on the host;
   4. drive the serving path at the LightGCN FULL width
      (``src/repro/configs/lightgcn.py:7``: 349,184 users x 53,248 items,
      D = 128, 3 layers) with 2^24 requested edges: data -> BipartiteCSR
@@ -41,14 +41,19 @@ Phases (any failure exits non-zero before the last line is printed):
      accumulated microbatches each, fused Hadamard route; the first
      microbatch's loss and gradients held against the plain route, and
      the training kernels' launch counts read;
-  7. hold ``sddmm`` against its plain version at adversarial shapes and
-     past 2^31 output elements, then drive the seed COO path (``coo``) on
-     the same graph: the NGCF forward at each dataflow level O0-O3 and the
-     LightGCN forward, each against the CSR route; the Fig 5 training arm
+  7. hold ``sddmm`` against its plain version at adversarial shapes
+     (with and without edge groups: groups longer than several chunks,
+     groups keyed on dst, groups of another call refused) and past 2^31
+     output elements, then drive the seed COO path (``coo``) on the same
+     graph, its user groups built once as set-up: the NGCF forward at
+     each dataflow level O0-O3 and the LightGCN forward, each against the
+     CSR route; the Fig 5 training arm
      (BPR gradients at O1-O3, 2 layers, against the CSR Pipeline; O0 vs O3
      on a 2^22-edge prefix); 3 steps each of the NGCF/LightGCN FULL cells'
      training step (``src/repro/launch/cells.py:739-776``); the Fig 6
-     breakdown of one O3 layer; the ``sddmm`` kernel line;
+     breakdown of one O3 layer; the ``sddmm`` kernel line ('mul' and
+     'dot' walking the user groups, the edge-order walk beside them, and
+     ``torch.sparse.sampled_addmm`` as the 'dot' yardstick);
   8. the subgraph-training baseline beside the full-graph step at depth
      1-3 (``subgraph``, the paper's headline comparison);
   9. print ``{"kernels": [...]}`` and, last, the device line.
@@ -128,7 +133,9 @@ TOLERANCE = {
     "ann_block_scores": "bitwise on integer-valued users (radius on and "
                         f"off); else allclose rtol={RTOL} atol={ATOL}",
     "sddmm": "bitwise on integer-valued inputs and on 'mul' at the main "
-             f"shape; else allclose rtol={RTOL} atol={ATOL}",
+             "shape, walking user groups or the edge order, and grouped "
+             f"equal to ungrouped; else allclose rtol={RTOL} atol={ATOL} "
+             "('dot' and its sampled_addmm yardstick)",
 }
 
 KERNELS = {
@@ -732,13 +739,26 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
     t_p = cuda_ms(torch, lambda: ref.embedding_bag_ref(user_f, ids, mask,
                                                        "sum"), reps=50)
     ids64 = ids.long()
-    t_l = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
-        ids64, user_f, mode="sum"), reps=50)
+
+    def bag_kernel():
+        return ops.embedding_bag(user_f, ids, mask, "sum", impl="cuda")
+
+    def bag_library():
+        return torch.nn.functional.embedding_bag(ids64, user_f, mode="sum")
+
+    t_l = cuda_ms(torch, bag_library, reps=50)
     b_ms, b_by = bound(ids.numel() * EMBED_DIM * 4 + ids.numel() * 5
                        + ids.numel() * EMBED_DIM * 4, ids.numel() * EMBED_DIM)
-    out["embedding_bag"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                bound_ms=b_ms, bound_by=b_by,
-                                work=f"B={ids.shape[0]} L=1 D={EMBED_DIM}")
+    out["embedding_bag"] = dict(
+        ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+        device_ms=device_ms(torch, bag_kernel),
+        library_device_ms=device_ms(torch, bag_library),
+        host_us_per_call=host_us(torch, bag_kernel),
+        library_host_us_per_call=host_us(torch, bag_library),
+        timing="ms: 50 Python calls between CUDA events; device_ms: 100 "
+               "calls captured in a CUDA graph and replayed; "
+               "host_us_per_call: 1,000 calls on a host clock",
+        work=f"B={ids.shape[0]} L=1 D={EMBED_DIM}")
 
     # fused_topk_score: one 256-user batch against the whole catalogue
     ue = _gather_rows(user_f, users, "cuda")
@@ -1465,10 +1485,11 @@ def check_sddmm(torch, dev, rng) -> float:
     """All four ops, coeff None and given, ~30% of edges masked (the first
     and the last among them), E in {1, 7, 127, 128, 129, 10,000}, D in {1,
     3, 37, 64, 128}, N_x != N_y; integer-valued inputs bitwise, float
-    inputs to rtol = atol = 1e-5; then one 'mul' past 2^31 output elements,
+    inputs to rtol = atol = 1e-5; the same ops walking edge groups
+    (``check_sddmm_groups``); then one 'mul' past 2^31 output elements,
     checked on a sample of edges that holds the last 1,024."""
     from repro_torch.kernels import ops, ref
-    worst = 0.0
+    worst = check_sddmm_groups(torch, dev, rng)
     for e in (1, 7, 127, 128, 129, 10_000):
         for d in (1, 3, 37, 64, 128):
             n_x, n_y = 3 + e % 97, 50 + e % 31
@@ -1513,6 +1534,70 @@ def check_sddmm(torch, dev, rng) -> float:
             "sddmm past 2^31 elements differs from the plain version")
     del got, x, y, src, dst, mask
     torch.cuda.empty_cache()
+    return worst
+
+
+def check_sddmm_groups(torch, dev, rng) -> float:
+    """The kernel walking edge groups: 20,000 edges over 3,000 keys with
+    one key holding 12 chunks' worth, ~25 % masked and 500 masked padding
+    edges (key 0) at the end; groups keyed on the call's src and on its
+    dst ('copy' on src only); D in {1, 37, 128, 130, 516} (rows past one
+    32-lane column slab load their tail per edge).  Each call is bitwise
+    equal to the same call without groups and held to the plain version
+    as ``check_sddmm``'s cases are; then groups of another call (equal
+    values, other storage; another mask; 'copy' keyed on dst) raise."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sddmm import CHUNK, group_edges
+    worst = 0.0
+    n_key, n_other, e_real, e_pad = 3_000, 700, 20_000, 20_500
+    key = rng.integers(0, n_key, e_real)
+    key[rng.permutation(e_real)[:12 * CHUNK]] = 11
+    key = np.concatenate([key, np.zeros(e_pad - e_real, int)])
+    mask_np = np.arange(e_pad) < e_real
+    mask_np[:e_real] &= rng.random(e_real) > 0.25
+    k_t, o_t, mask = (torch.from_numpy(a).to(dev) for a in (
+        key.astype(np.int32), rng.integers(0, n_other, e_pad).astype(np.int32),
+        mask_np))
+    groups = group_edges(k_t, o_t, mask)
+    for d in (1, 37, 128, 130, 516):
+        for integer in (True, False):
+            def feats(*shape):
+                a = rng.integers(-3, 4, shape) if integer \
+                    else rng.standard_normal(shape)
+                return torch.from_numpy(a.astype(np.float32)).to(dev)
+            tk, to, coeff = feats(n_key, d), feats(n_other, d), feats(e_pad)
+            for op in ("mul", "add", "dot", "copy"):
+                keyed = ("src",) if op == "copy" else ("src", "dst")
+                for side in keyed:
+                    args = (tk, to, k_t, o_t, mask) if side == "src" \
+                        else (to, tk, o_t, k_t, mask)
+                    got = ops.sddmm(op, *args, coeff, impl="cuda",
+                                    groups=groups)
+                    plain = ref.sddmm_ref(op, *args, coeff)
+                    what = f"sddmm grouped {op} keyed {side} D={d}"
+                    require(torch.equal(got, ops.sddmm(op, *args, coeff,
+                                                       impl="cuda")),
+                            f"{what}: differs from the edge-order walk")
+                    if integer or op != "dot":
+                        require(torch.equal(got, plain),
+                                f"{what}: not bitwise equal to the plain "
+                                "version")
+                    else:
+                        worst = max(worst, close(torch, got, plain, what))
+                    require(bool((got[~mask] == 0).all()),
+                            f"{what}: a masked edge is not 0")
+    x, y = torch.ones((n_key, 4), device=dev), torch.ones((n_other, 4),
+                                                           device=dev)
+    for bad, args in (
+            (group_edges(k_t.clone(), o_t.clone(), mask),
+             ("mul", x, y, k_t, o_t, mask)),
+            (groups, ("mul", x, y, k_t, o_t, mask.clone())),
+            (groups, ("copy", y, x, o_t, k_t, mask))):
+        try:
+            ops.sddmm(*args, impl="cuda", groups=bad)
+        except ValueError:
+            continue
+        raise SmokeFailure("sddmm took groups of another call")
     return worst
 
 
@@ -1655,6 +1740,7 @@ def coo_fig5(torch, dev, g, params, pipe, train):
     n = PREFIX_EDGES
     gp = graph.bipartite_from_numpy(train.user[:n], train.item[:n], N_USERS,
                                     N_ITEMS, device=dev)
+    gp.user_groups()                      # set-up, outside the timed calls
     pre = {}
     for level in (0, 3):
         torch.cuda.empty_cache()
@@ -1744,10 +1830,10 @@ def coo_fig6(torch, g, params):
     from repro_torch.kernels import ops
     xu, xi = params["user_embed"], params["item_embed"]
     w1, w2 = params["w1"][0], params["w2"][0]
-    u, i, mask = g.user, g.item, g.edge_mask
-    mul_e = ops.sddmm("mul", xu, xi, u, i, mask)
-    sddmm_ms = cuda_ms(torch, lambda: ops.sddmm("mul", xu, xi, u, i, mask),
-                       reps=5)
+    u, i, mask, grp = g.user, g.item, g.edge_mask, g.user_groups()
+    mul_e = ops.sddmm("mul", xu, xi, u, i, mask, groups=grp)
+    sddmm_ms = cuda_ms(torch, lambda: ops.sddmm("mul", xu, xi, u, i, mask,
+                                                groups=grp), reps=5)
     spmm_ms = (cuda_ms(torch, lambda: sparse_ops.spmm(
         "sum", mul_e, i, N_ITEMS, mask), reps=3)
         + cuda_ms(torch, lambda: sparse_ops.spmm(
@@ -1770,22 +1856,34 @@ def coo_fig6(torch, g, params):
                 (sddmm_ms + spmm_ms + copy_ms) / layer_ms}
 
 
-def time_sddmm(torch, g, params, errs, launches_per_forward):
-    """``sddmm`` at the O3 shape (layer 0's tables, every train edge):
-    'mul' kernel against its plain version (bitwise) and a two-call
-    yardstick; 'dot' at the same edges.  Bounds from this run's inputs:
-    each input read once, the output written once."""
+def time_sddmm(torch, g, params, errs, launches_per_forward, groups_ms):
+    """``sddmm`` at the O3 shape (layer 0's tables, every train edge),
+    walking the graph's user groups (built once, before, in
+    ``groups_ms``): 'mul' against its plain version (bitwise), the
+    edge-order walk (bitwise) and a two-call yardstick; 'dot' at the same
+    edges against its plain version and ``torch.sparse.sampled_addmm``
+    over the live edges' CSR pattern (built from the groups outside the
+    window).  Bounds from this run's inputs: each input read once, the
+    output written once."""
     from repro_torch.kernels import ops, ref
     xu, xi = params["user_embed"], params["item_embed"]
-    u, i, mask = g.user, g.item, g.edge_mask
+    u, i, mask, grp = g.user, g.item, g.edge_mask, g.user_groups()
     args = (xu, xi, u, i, mask)
-    got = ops.sddmm("mul", *args, impl="cuda")
+
+    def kernel(op, groups=grp):
+        return ops.sddmm(op, *args, impl="cuda", groups=groups)
+
+    got = kernel("mul")
     want = ref.sddmm_ref("mul", *args)
     require(torch.equal(got, want), "sddmm main shape: not bitwise equal to "
                                     "the plain version")
     errs["sddmm"] = max(errs["sddmm"], max_err(got, want))
-    del got, want
-    t_k = cuda_ms(torch, lambda: ops.sddmm("mul", *args, impl="cuda"), reps=10)
+    del want
+    require(torch.equal(got, kernel("mul", None)),
+            "sddmm main shape: grouped and edge-order walks differ")
+    del got
+    t_k = cuda_ms(torch, lambda: kernel("mul"), reps=10)
+    t_e = cuda_ms(torch, lambda: kernel("mul", None), reps=10)
     t_p = cuda_ms(torch, lambda: ref.sddmm_ref("mul", *args), reps=3)
     t_y = cuda_ms(torch, lambda: xu.index_select(0, u) * xi.index_select(0, i),
                   reps=5)
@@ -1793,21 +1891,50 @@ def time_sddmm(torch, g, params, errs, launches_per_forward):
     inputs = (xu.numel() * 4 + xi.numel() * 4 + u.numel() * 4 + i.numel() * 4
               + mask.numel() * mask.element_size())
     b_ms, b_by = bound(inputs + e * d * 4, float(e * d))
-    got = ops.sddmm("dot", *args, impl="cuda")
+    got = kernel("dot")
     want = ref.sddmm_ref("dot", *args)
     errs["sddmm"] = max(errs["sddmm"], close(torch, got, want,
                                              "sddmm dot main"))
-    del got, want
-    t_dk = cuda_ms(torch, lambda: ops.sddmm("dot", *args, impl="cuda"), reps=10)
+    require(torch.equal(got, kernel("dot", None)),
+            "sddmm dot main: grouped and edge-order walks differ")
+    del want
+    t_dk = cuda_ms(torch, lambda: kernel("dot"), reps=10)
+    t_de = cuda_ms(torch, lambda: kernel("dot", None), reps=10)
     t_dp = cuda_ms(torch, lambda: ref.sddmm_ref("dot", *args), reps=3)
     db_ms, db_by = bound(inputs + e * 4, 2.0 * e * d)
+    # the library yardstick of 'dot': one sampled dense-dense product over
+    # the live edges' CSR pattern (rows = users, in the groups' order)
+    live = grp.mask_sorted.bool()
+    rows = grp.key_sorted[live].long()
+    crow = torch.zeros(N_USERS + 1, dtype=torch.int64, device=xu.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=N_USERS), 0)
+    cols = grp.other_sorted[live].long()
+    with warnings.catch_warnings():         # beta-state notices only
+        warnings.simplefilter("ignore", UserWarning)
+        pattern = torch.sparse_csr_tensor(
+            crow, cols, torch.zeros(cols.numel(), device=xu.device),
+            size=(N_USERS, N_ITEMS))
+        xi_t = xi.t()
+        lib = torch.sparse.sampled_addmm(pattern, xu, xi_t)
+        err = close(torch, lib.values(), got[grp.perm[live].long()],
+                    "sddmm dot vs sampled_addmm")
+        del lib, got
+        t_l = cuda_ms(torch, lambda: torch.sparse.sampled_addmm(
+            pattern, xu, xi_t), reps=10)
+    del pattern, rows, cols, crow, live
+    groups_bytes = sum(t.numel() * t.element_size() for t in (
+        grp.perm, grp.key_sorted, grp.other_sorted, grp.mask_sorted))
     rec = dict(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, yardstick_ms=t_y,
+               bound_by=b_by, edge_order_ms=t_e, yardstick_ms=t_y,
                yardstick="x.index_select(0, src) * y.index_select(0, dst)",
                launches_per_forward=launches_per_forward,
-               work=f"mul, E={e} D={d} (one O3 layer)",
-               dot={"ms": t_dk, "plain_ms": t_dp, "bound_ms": db_ms,
-                    "bound_by": db_by})
+               groups_build_ms=groups_ms, groups_bytes=groups_bytes,
+               work=f"mul, E={e} D={d} (one O3 layer), walking user groups",
+               dot={"ms": t_dk, "edge_order_ms": t_de, "plain_ms": t_dp,
+                    "bound_ms": db_ms, "bound_by": db_by,
+                    "library_ms": t_l, "library_max_abs_err": err,
+                    "library": "torch.sparse.sampled_addmm(csr_pattern, "
+                               "x_user, x_item.T)"})
     emit({"kernel": "sddmm", "kernel_ms": t_k,
           **{k: v for k, v in rec.items() if k != "ms"},
           "max_abs_err": errs["sddmm"], "tolerance": TOLERANCE["sddmm"]})
@@ -1827,6 +1954,7 @@ def coo_phase(torch, dev, train, pipe, errs):
                               device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    _, groups_ms = timed(torch, g.user_groups)      # once per graph
     kernels.reset_launch_counts()
     with torch.no_grad():
         fwd, depth = coo_forwards(torch, g, params, pipe.g)
@@ -1836,9 +1964,10 @@ def coo_phase(torch, dev, train, pipe, errs):
     require(launches["sddmm"] > 0, "sddmm never launched on the COO path")
     with torch.no_grad():
         fig6 = coo_fig6(torch, g, params)
-        rec = time_sddmm(torch, g, params, errs, depth)
+        rec = time_sddmm(torch, g, params, errs, depth, groups_ms)
     emit({"phase": "coo", "config": "ngcf-3l-128e", "edges": train.n_edges,
-          "setup_s": setup_s, "forward": fwd, "fig5_train": fig5,
+          "setup_s": setup_s, "user_groups_build_ms": groups_ms,
+          "forward": fwd, "fig5_train": fig5,
           "inference_speedup_O0_to_O3": fwd["ngcf"]["O0"]["ms"][1]
           / fwd["ngcf"]["O3"]["ms"][1],
           "cells_train": cells, "fig6_layer": fig6, "launches": launches})
@@ -1964,8 +2093,8 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"],
-                     **{k: t[k] for k in ("device_ms", "library_device_ms")
-                        if k in t}})
+                     **{k: t[k] for k in ("device_ms", "library_device_ms",
+                                          "dot") if k in t}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, to_device
+from repro_torch.kernels.sddmm import EdgeGroups, group_edges
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,10 +50,21 @@ class BipartiteGraph:
     n_users: int
     n_items: int
     n_edges: int
+    _user_groups: EdgeGroups | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def e_pad(self) -> int:
         return self.user.shape[0]
+
+    def user_groups(self) -> EdgeGroups:
+        """The edges grouped by user (``kernels.sddmm.group_edges``: one
+        sort on the graph's device), built on the first call and kept, so
+        that every layer, step and level reuses them."""
+        if self._user_groups is None:
+            object.__setattr__(self, "_user_groups", group_edges(
+                self.user, self.item, self.edge_mask))
+        return self._user_groups
 
     @property
     def n_nodes(self) -> int:

@@ -15,9 +15,12 @@ Levels 1 and 2 share one branch, as in the reference, where the
 "kernelize" step is the ``impl`` choice: levels 1-3 form their messages
 with ``kernels.ops.sddmm`` routed by ``impl`` (None: the CUDA kernel for a
 CUDA tensor), so level 1 without the kernel is level 1 with
-``impl='torch'``.  Its backward recomputes the gathers, so no level keeps an
-[E, D] message matrix for autograd except level 0.  Levels 1-3 are
-equal; level 0 differs by float reassociation.
+``impl='torch'``.  Its backward recomputes the gathers, so no level keeps
+an [E, D] message matrix for autograd except level 0.  Levels 1-3 are
+equal; level 0 differs by float reassociation.  Each sddmm call gets the
+graph's user groups (``BipartiteGraph.user_groups``, built once per
+graph), so that the kernel walks the edges by user and reads each user
+row about once.
 """
 from __future__ import annotations
 
@@ -52,14 +55,18 @@ def ngcf_propagate_bipartite(g: BipartiteGraph, x_user, x_item, w1, w2,
         h_user = sparse_ops.segment_sum(m_to_user, u, nu)
         return h_user, h_item
 
+    groups = g.user_groups()     # keys u: src below, dst in O2's second call
     if opt_level >= 3:
         # O3: one SDDMM serves both directions (x_u⊙x_i == x_i⊙x_u)
-        mul_e = kops.sddmm("mul", x_user, x_item, u, i, mask, impl=impl)
+        mul_e = kops.sddmm("mul", x_user, x_item, u, i, mask, impl=impl,
+                           groups=groups)
         agg_mul_item = sparse_ops.spmm("sum", mul_e, i, ni, mask)
         agg_mul_user = sparse_ops.spmm("sum", mul_e, u, nu, mask)
     else:
-        mul_e_item = kops.sddmm("mul", x_user, x_item, u, i, mask, impl=impl)
-        mul_e_user = kops.sddmm("mul", x_item, x_user, i, u, mask, impl=impl)
+        mul_e_item = kops.sddmm("mul", x_user, x_item, u, i, mask, impl=impl,
+                                groups=groups)
+        mul_e_user = kops.sddmm("mul", x_item, x_user, i, u, mask, impl=impl,
+                                groups=groups)
         agg_mul_item = sparse_ops.spmm("sum", mul_e_item, i, ni, mask)
         agg_mul_user = sparse_ops.spmm("sum", mul_e_user, u, nu, mask)
 

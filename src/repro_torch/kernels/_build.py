@@ -45,7 +45,8 @@ SIGNATURES = {
         "ann_block_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "sddmm": {
-        "sddmm_f32": (_I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+        "sddmm_f32": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                      _P),
     },
     "topk_score": {
         "fused_topk_score_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

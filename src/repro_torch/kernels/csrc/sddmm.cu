@@ -9,32 +9,65 @@
 //
 // Bound: memory. The output (E * D floats, written once) is most of the
 // traffic: NGCF's O3 message matrix is 7.7 GB per layer, against ~0.3 GB of
-// tables and indices. The gathered rows are re-read many times (Zipf
-// degrees), partly from L2.
+// tables and indices. What keeps a kernel from that bound is the gathered
+// rows: the COO graph's edges lie in random order, and the user table (179
+// MB at the smoke's shape) does not fit in the 50 MB L2, so an edge-order
+// walk fetches nearly every edge's user row from device memory again, as
+// many bytes again as the output.
 //
-// Design, from the TPU kernel's nt-write intent (paper section 6): each output
-// row is produced once and never re-read, so it is stored with streaming
-// hints (__stcs, st.global.cs) that keep it from evicting the gathered rows
-// out of L2, and the gathered rows are loaded through the read-only path
-// (__ldg). One warp owns a group of 32 consecutive edges: lane l loads the
-// (src, dst, mask, coeff) of edge base + l, and the warp walks the group's
-// edges, broadcasting each edge's indices with __shfl_sync; lanes cover the
-// row's D floats, 16 bytes each when D % 4 == 0 (else 4 bytes), and kUnroll
-// edges' rows are in flight at once. 'dot' sums each lane's products and
-// reduces across the warp with __shfl_xor_sync; lane j keeps edge j's sum, so
-// the group's 32 sums are stored by one coalesced write. Each product and sum
-// is rounded on its own (__fmul_rn, __fadd_rn: no FMA contraction), as the
-// plain version rounds it, so 'mul', 'add' and 'copy' equal it bit for bit.
-// Every element offset is computed in 64 bits: E * D passes 2^31 at the
-// main shape's scale.
+// Design: the edges are walked in an order grouped by one endpoint, the
+// "key" (for NGCF the user), given once per graph as perm (edge ids stably
+// sorted by key) with the key, the other endpoint and the mask in that
+// order (kernels/sddmm.py:group_edges). One warp takes kChunk consecutive
+// sorted positions; lanes load 32 positions' (perm, key, other, mask) at a
+// time, coalesced, and the warp walks them kUnroll edges at a time. The
+// key's row (the "grouped" table g: x when the groups key src, y when they
+// key dst) is loaded into registers only when the key changes from the
+// previous live edge: the test is warp-uniform, so it costs no divergence,
+// and each user row leaves device memory about once per chunk. The other
+// row (table o, 27 MB of items here, served from L2) is gathered per edge
+// through the read-only path (__ldg), kUnroll rows in flight. A long group
+// spans several chunks and each loads its row once; every edge's output is
+// its own, so no combine pass and no atomics. Edge perm[j]'s output row is
+// stored whole at out[perm[j]] with streaming hints (__stcs, st.global.cs),
+// the TPU kernel's nt-write intent (paper section 6), so the output does not
+// evict the item rows from L2. Without groups (perm null) the same kernel
+// walks the edges in their own order, keyed by src: the previous design's
+// access pattern, with no sort.
+//
+// Lanes cover the row's D floats, 16 bytes each when D % 4 == 0 (else 4
+// bytes); the grouped row's first 32 lane columns are held in registers
+// (the whole row when D <= 128 on 16-byte lanes, as in NGCF), and wider
+// rows load the rest per live edge. 'dot' sums each lane's products in column
+// order and reduces across the warp with __shfl_xor_sync; lane j keeps
+// position j's sum. Each product and sum is rounded on its own (__fmul_rn,
+// __fadd_rn: no FMA contraction), and products and sums of two terms
+// commute exactly, so every op equals the edge-order design bit for bit,
+// and 'mul', 'add' and 'copy' equal the plain version bit for bit. Every
+// element offset is computed in 64 bits: E * D passes 2^31 at the main
+// shape's scale.
 #include <cuda_runtime.h>
+
+#ifndef REPRO_SDDMM_CHUNK
+#define REPRO_SDDMM_CHUNK 256
+#endif
+// Tuned on the H100 with tools/torch_kernel_ab.py --variants (PERF.md)
+#ifndef REPRO_SDDMM_UNROLL
+#define REPRO_SDDMM_UNROLL 2
+#endif
+#ifndef REPRO_SDDMM_MIN_BLOCKS
+#define REPRO_SDDMM_MIN_BLOCKS 4
+#endif
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;
+constexpr int kUnroll = REPRO_SDDMM_UNROLL;  // edges in flight per warp
+constexpr int kChunk = REPRO_SDDMM_CHUNK;  // sorted positions per warp
+constexpr int kMinBlocks = REPRO_SDDMM_MIN_BLOCKS;  // resident blocks per SM asked of ptxas
+static_assert(kChunk % 32 == 0, "a chunk is whole batches of 32 positions");
 
 enum Op { kMul = 0, kAdd = 1, kDot = 2, kCopy = 3 };
 
@@ -74,115 +107,158 @@ __device__ __forceinline__ float dot_part(float4 a, float4 b) {
   return __fadd_rn(s, __fmul_rn(a.w, b.w));
 }
 
-// T = float4 (D % 4 == 0, 16-byte aligned rows) or float (any D).
+// Lane column c of kUnroll edges: a holds the grouped rows, b the other
+// rows; 'dot' adds to part, the other ops store their output rows.
 template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-sddmm_kernel(const float* __restrict__ x, const float* __restrict__ y,
-             const int* __restrict__ src, const int* __restrict__ dst,
-             const unsigned char* __restrict__ mask, const float* __restrict__ coeff,
-             float* __restrict__ out, long long n_edges, int d) {
-  const long long base = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
-  if (base >= n_edges) return;  // whole warp leaves together
+__device__ __forceinline__ void finish(const T (&a)[kUnroll], const T (&b)[kUnroll],
+                                       const bool (&lv)[kUnroll], const float (&cf)[kUnroll],
+                                       const int (&re)[kUnroll], float (&part)[kUnroll],
+                                       bool scaled, int left, bool active, T* outs,
+                                       int width, int c) {
+#pragma unroll
+  for (int q = 0; q < kUnroll; ++q) {
+    if (!active || q >= left) continue;
+    if (OP == kDot) {
+      if (lv[q]) part[q] = __fadd_rn(part[q], dot_part(a[q], b[q]));
+    } else {
+      T v = zero<T>();
+      if (lv[q]) {
+        if (OP == kMul) v = mul(a[q], b[q]);
+        else if (OP == kAdd) v = add(a[q], b[q]);
+        else v = scaled ? scale(a[q], cf[q]) : a[q];
+      }
+      st(outs + (long long)re[q] * width + c, v);
+    }
+  }
+}
+
+// T = float4 (D % 4 == 0, 16-byte aligned rows) or float (any D). g is the
+// grouped table (indexed by key), o the other one (indexed by other); perm
+// null walks the edges in their own order.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+sddmm_kernel(const float* __restrict__ g, const float* __restrict__ o,
+             const int* __restrict__ perm, const int* __restrict__ key,
+             const int* __restrict__ other, const unsigned char* __restrict__ live,
+             const float* __restrict__ coeff, float* __restrict__ out,
+             long long n_edges, int d) {
+  const long long begin = ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kChunk;
+  if (begin >= n_edges) return;  // whole warp leaves together
+  const long long end = min(begin + (long long)kChunk, n_edges);
   const int lane = threadIdx.x & 31;
-  const int cnt = (int)min(32LL, n_edges - base);
   constexpr int kPer = sizeof(T) / sizeof(float);
   const int width = d / kPer;  // columns in units of T
-  const T* xs = reinterpret_cast<const T*>(x);
-  const T* ys = reinterpret_cast<const T*>(y);
-  T* os = reinterpret_cast<T*>(out);
+  const int slabs = (width + 31) / 32;
+  const T* gs = reinterpret_cast<const T*>(g);
+  const T* os = reinterpret_cast<const T*>(o);
+  T* outs = reinterpret_cast<T*>(out);
 
-  int my_src = 0, my_dst = 0, my_live = 0;
-  float my_coeff = 1.f;
-  if (lane < cnt) {
-    my_src = src[base + lane];
-    if (OP != kCopy) my_dst = dst[base + lane];
-    my_live = mask[base + lane] != 0;
-    if (OP == kCopy && coeff != nullptr) my_coeff = coeff[base + lane];
-  }
-  float my_dot = 0.f;  // 'dot': the sum of edge base + lane
+  T held = zero<T>();  // this lane's first column of the row of key `cur`
+  int cur = -1;        // the key of the last live edge; -1 before the first
 
-  for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
-    long long rs[kUnroll], rd[kUnroll];
-    bool live[kUnroll];
-    float cf[kUnroll];
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q) {
-      const int j = (j0 + q) & 31;
-      rs[q] = __shfl_sync(kFull, my_src, j);
-      rd[q] = __shfl_sync(kFull, my_dst, j);
-      live[q] = __shfl_sync(kFull, my_live, j) != 0 && j0 + q < cnt;
-      cf[q] = __shfl_sync(kFull, my_coeff, j);
+  for (long long base = begin; base < end; base += 32) {
+    const int cnt = (int)min(32LL, end - base);
+    int my_perm = 0, my_key = 0, my_other = 0, my_live = 0;
+    float my_coeff = 1.f;
+    if (lane < cnt) {
+      const long long p = base + lane;
+      my_perm = perm != nullptr ? perm[p] : (int)p;
+      my_key = key[p];
+      if (OP != kCopy) my_other = other[p];
+      my_live = live[p] != 0;
+      if (OP == kCopy && coeff != nullptr) my_coeff = coeff[my_perm];
     }
-    float part[kUnroll];
-#pragma unroll
-    for (int q = 0; q < kUnroll; ++q) part[q] = 0.f;
+    float my_dot = 0.f;  // 'dot': the sum of position base + lane
 
-    for (int c0 = 0; c0 < width; c0 += 32) {
-      const int c = c0 + lane;
-      const bool active = c < width;
-      T a[kUnroll], b[kUnroll];
+    for (int j0 = 0; j0 < cnt; j0 += kUnroll) {
+      int rk[kUnroll], ro[kUnroll], re[kUnroll];  // key, other, output rows
+      bool lv[kUnroll], fresh[kUnroll];
+      float cf[kUnroll];
 #pragma unroll
       for (int q = 0; q < kUnroll; ++q) {
-        a[q] = zero<T>();
-        b[q] = zero<T>();
-        if (active && live[q]) {
-          a[q] = ld(xs + rs[q] * width + c);
-          if (OP != kCopy) b[q] = ld(ys + rd[q] * width + c);
-        }
+        const int j = (j0 + q) & 31;
+        const int k = __shfl_sync(kFull, my_key, j);
+        rk[q] = k;
+        ro[q] = __shfl_sync(kFull, my_other, j);
+        re[q] = __shfl_sync(kFull, my_perm, j);
+        lv[q] = __shfl_sync(kFull, my_live, j) != 0 && j0 + q < cnt;
+        cf[q] = __shfl_sync(kFull, my_coeff, j);
+        fresh[q] = lv[q] && k != cur;  // warp-uniform
+        if (lv[q]) cur = k;
       }
+      float part[kUnroll];
 #pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        if (!active || j0 + q >= cnt) continue;
-        if (OP == kDot) {
-          if (live[q]) part[q] = __fadd_rn(part[q], dot_part(a[q], b[q]));
-        } else {
-          T v = zero<T>();
-          if (live[q]) {
-            if (OP == kMul) v = mul(a[q], b[q]);
-            else if (OP == kAdd) v = add(a[q], b[q]);
-            else v = coeff != nullptr ? scale(a[q], cf[q]) : a[q];
+      for (int q = 0; q < kUnroll; ++q) part[q] = 0.f;
+      const int left = cnt - j0;
+
+      // the first lane column, held in registers: load the grouped row
+      // only where the key changes, all loads issued before any is used
+      {
+        const bool active = lane < width;
+        T a[kUnroll], b[kUnroll];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          a[q] = zero<T>();
+          b[q] = zero<T>();
+          if (active && fresh[q]) a[q] = ld(gs + (long long)rk[q] * width + lane);
+          if (OP != kCopy && active && lv[q]) b[q] = ld(os + (long long)ro[q] * width + lane);
+        }
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q)
+          if (!fresh[q]) a[q] = q == 0 ? held : a[q - 1];
+        held = a[kUnroll - 1];
+        finish<T, OP>(a, b, lv, cf, re, part, coeff != nullptr, left, active, outs, width,
+                      lane);
+      }
+      // lane columns past the first (D > 32 * kPer): the grouped row per
+      // live edge
+      for (int s = 1; s < slabs; ++s) {
+        const int c = s * 32 + lane;
+        const bool active = c < width;
+        T a[kUnroll], b[kUnroll];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          a[q] = zero<T>();
+          b[q] = zero<T>();
+          if (active && lv[q]) {
+            a[q] = ld(gs + (long long)rk[q] * width + c);
+            if (OP != kCopy) b[q] = ld(os + (long long)ro[q] * width + c);
           }
-          st(os + (base + j0 + q) * width + c, v);
+        }
+        finish<T, OP>(a, b, lv, cf, re, part, coeff != nullptr, left, active, outs, width,
+                      c);
+      }
+
+      if (OP == kDot) {
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          float s = part[q];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
+          if (lane == ((j0 + q) & 31)) my_dot = lv[q] ? s : 0.f;
         }
       }
     }
-
-    if (OP == kDot) {
-#pragma unroll
-      for (int q = 0; q < kUnroll; ++q) {
-        float s = part[q];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
-        if (lane == ((j0 + q) & 31)) my_dot = live[q] ? s : 0.f;
-      }
-    }
+    if (OP == kDot && lane < cnt) st(out + my_perm, my_dot);
   }
-  if (OP == kDot && lane < cnt) st(out + base + lane, my_dot);
 }
 
 template <typename T>
-void launch(int op, const float* x, const float* y, const int* src, const int* dst,
-            const unsigned char* mask, const float* coeff, float* out, long long n_edges,
-            int d, cudaStream_t st) {
-  const long long warps = (n_edges + 31) / 32;
+void launch(int op, const float* g, const float* o, const int* perm, const int* key,
+            const int* other, const unsigned char* live, const float* coeff, float* out,
+            long long n_edges, int d, cudaStream_t st) {
+  const long long warps = (n_edges + kChunk - 1) / kChunk;
   const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+#define SDDMM_LAUNCH(OP)                                                                 \
+  sddmm_kernel<T, OP><<<blocks, kThreads, 0, st>>>(g, o, perm, key, other, live, coeff, out, \
+                                                   n_edges, d)
   switch (op) {
-    case kMul:
-      sddmm_kernel<T, kMul><<<blocks, kThreads, 0, st>>>(x, y, src, dst, mask, coeff, out,
-                                                         n_edges, d);
-      break;
-    case kAdd:
-      sddmm_kernel<T, kAdd><<<blocks, kThreads, 0, st>>>(x, y, src, dst, mask, coeff, out,
-                                                         n_edges, d);
-      break;
-    case kDot:
-      sddmm_kernel<T, kDot><<<blocks, kThreads, 0, st>>>(x, y, src, dst, mask, coeff, out,
-                                                         n_edges, d);
-      break;
-    default:
-      sddmm_kernel<T, kCopy><<<blocks, kThreads, 0, st>>>(x, y, src, dst, mask, coeff, out,
-                                                          n_edges, d);
+    case kMul: SDDMM_LAUNCH(kMul); break;
+    case kAdd: SDDMM_LAUNCH(kAdd); break;
+    case kDot: SDDMM_LAUNCH(kDot); break;
+    default: SDDMM_LAUNCH(kCopy);
   }
+#undef SDDMM_LAUNCH
 }
 
 }  // namespace
@@ -191,27 +267,33 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// op: 0 mul, 1 add, 2 dot, 3 copy. x f32[Nx, d]; y f32[Ny, d] (unused by copy);
-// src, dst i32[E] (dst unused by copy); mask u8[E]; coeff f32[E] or null (read
-// by copy only); out f32[E, d], or f32[E] for dot. vec4 != 0 promises
-// d % 4 == 0 and 16-byte aligned x, y and out.
-extern "C" int sddmm_f32(int op, const void* x, const void* y, const void* src,
-                         const void* dst, const void* mask, const void* coeff, void* out,
-                         long long n_edges, int d, int vec4, int device, void* stream) {
+// op: 0 mul, 1 add, 2 dot, 3 copy. g f32[Ng, d], the table the groups key
+// (x when they key src, y when they key dst); o f32[No, d], the other table
+// (unused by copy). perm i32[E] or null (identity): edge ids in walking
+// order; key, other i32[E] and live u8[E]: each position's key, other
+// endpoint and mask, in that order (other unused by copy); coeff f32[E] by
+// edge id, or null (read by copy only); out f32[E, d], or f32[E] for dot,
+// by edge id. copy needs the groups to key src. vec4 != 0 promises
+// d % 4 == 0 and 16-byte aligned g, o and out.
+extern "C" int sddmm_f32(int op, const void* g, const void* o, const void* perm,
+                         const void* key, const void* other, const void* live,
+                         const void* coeff, void* out, long long n_edges, int d, int vec4,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (op < kMul || op > kCopy) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* yf = static_cast<const float*>(y);
-  const int* s = static_cast<const int*>(src);
-  const int* t = static_cast<const int*>(dst);
-  const unsigned char* m = static_cast<const unsigned char*>(mask);
+  const float* gf = static_cast<const float*>(g);
+  const float* of = static_cast<const float*>(o);
+  const int* p = static_cast<const int*>(perm);
+  const int* k = static_cast<const int*>(key);
+  const int* t = static_cast<const int*>(other);
+  const unsigned char* m = static_cast<const unsigned char*>(live);
   const float* c = static_cast<const float*>(coeff);
-  float* o = static_cast<float*>(out);
+  float* out_f = static_cast<float*>(out);
   if (vec4)
-    launch<float4>(op, xf, yf, s, t, m, c, o, n_edges, d, st);
+    launch<float4>(op, gf, of, p, k, t, m, c, out_f, n_edges, d, st);
   else
-    launch<float>(op, xf, yf, s, t, m, c, o, n_edges, d, st);
+    launch<float>(op, gf, of, p, k, t, m, c, out_f, n_edges, d, st);
   return (int)cudaGetLastError();
 }

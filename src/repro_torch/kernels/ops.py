@@ -33,12 +33,17 @@ def route(impl, tensor) -> str:
     return impl
 
 
-def sddmm(op, x, y, src, dst, edge_mask, coeff=None, impl=None):
+def sddmm(op, x, y, src, dst, edge_mask, coeff=None, impl=None,
+          groups=None):
     """One value per edge (``kernels/sddmm.py``): 'mul', 'add', 'dot' or
     'copy', +0.0 on masked edges.  'copy' scales by ``coeff`` here, while
     ``core.sparse_ops.sddmm`` takes no coeff, as in the reference.  Both
-    routes run inside one autograd Function with a written-out backward."""
-    return _Sddmm.apply(op, x, y, src, dst, edge_mask, coeff, route(impl, x))
+    routes run inside one autograd Function with a written-out backward.
+    ``groups`` (``kernels.sddmm.EdgeGroups`` of this call's src or dst)
+    sets the order in which the kernel walks the edges; the plain route
+    ignores it, and the result is the same either way."""
+    return _Sddmm.apply(op, x, y, src, dst, edge_mask, coeff, route(impl, x),
+                        groups)
 
 
 def spmm_csr(reduce, values, indptr, src_sorted, n_nodes, gather=False,

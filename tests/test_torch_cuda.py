@@ -220,6 +220,107 @@ def test_sddmm_kernel_matches_plain(dev, op, d, integer):
     assert bool((got[dead] == 0).all()) and not bool(got[dead].signbit().any())
 
 
+def _grouped_case(rng, d, integer, dev):
+    """Users x items with user 5 holding a group of 5 chunks and a half,
+    ~25 % of the real edges masked in the middle, masked padding at the
+    end (user 0, item 0); float or integer-valued tables and coeff."""
+    from repro_torch.core.graph import pad_edges
+    from repro_torch.kernels.sddmm import CHUNK
+    n_users, n_items, e_real = 300, 170, 6 * CHUNK + 900
+    user = rng.integers(0, n_users, e_real).astype(np.int32)
+    user[rng.permutation(e_real)[:11 * CHUNK // 2]] = 5
+    item = rng.integers(0, n_items, e_real).astype(np.int32)
+    u, i, mask = pad_edges(user, item, e_real + 77)
+    mask[:e_real] &= rng.random(e_real) > 0.25
+
+    def feats(*shape):
+        if integer:
+            return rng.integers(-3, 4, shape).astype(np.float32)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return [torch.from_numpy(a).to(dev) for a in (
+        feats(n_users, d), feats(n_items, d), u, i, mask, feats(u.size))]
+
+
+@pytest.mark.parametrize("keyed", ["src", "dst"])
+@pytest.mark.parametrize("op", ["mul", "add", "dot", "copy"])
+@pytest.mark.parametrize("d", [128, 37, 1, 130, 516])
+def test_sddmm_grouped_kernel_matches_plain(dev, d, op, keyed):
+    """The kernel walking user groups (keyed on the call's src, as at O3,
+    or on its dst, as in O2's second call; 'copy' only on src) with a
+    group longer than five chunks, on rows of one to five 32-lane column
+    slabs (16-byte lanes at D = 128 and 516): one launch; equal to the
+    same kernel without groups bit for bit; integer-valued inputs bitwise
+    against the plain version, else 'mul'/'add'/'copy' bitwise and 'dot'
+    to rtol = atol = 1e-5; masked edges +0.0."""
+    from repro_torch.kernels.sddmm import group_edges
+    if op == "copy" and keyed == "dst":
+        keyed = "src"
+    rng = np.random.default_rng(d + len(op))
+    for integer in (True, False):
+        xu, xi, u, i, mask, coeff = _grouped_case(rng, d, integer, dev)
+        args = (xu, xi, u, i, mask) if keyed == "src" \
+            else (xi, xu, i, u, mask)
+        groups = group_edges(u, i, mask)
+        before = launch_counts()["sddmm"]
+        got = ops.sddmm(op, *args, coeff, groups=groups)
+        assert launch_counts()["sddmm"] == before + 1
+        assert torch.equal(got, ops.sddmm(op, *args, coeff))
+        want = ref.sddmm_ref(op, *args, coeff)
+        if integer or op != "dot":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        dead = ~mask
+        assert bool((got[dead] == 0).all())
+        assert not bool(got[dead].signbit().any())
+
+
+def test_sddmm_kernel_refuses_foreign_groups(dev):
+    """Groups of another graph (equal values, other storage), of another
+    mask, or keyed on dst for 'copy' raise on the card; nothing launches."""
+    from repro_torch.kernels.sddmm import group_edges
+    xu, xi, u, i, mask, _ = _grouped_case(np.random.default_rng(3), 16,
+                                          True, dev)
+    groups = group_edges(u, i, mask)
+    before = launch_counts()["sddmm"]
+    for bad, args in (
+            (group_edges(u.clone(), i.clone(), mask), (xu, xi, u, i, mask)),
+            (groups, (xu, xi, u, i, mask.clone())),
+            (groups, (xu, xi, i, i, mask))):
+        with pytest.raises(ValueError, match="sddmm groups"):
+            ops.sddmm("mul", *args, groups=bad)
+    with pytest.raises(ValueError, match="do not belong to this call"):
+        ops.sddmm("copy", xi, xu, i, u, mask, groups=groups)
+    assert launch_counts()["sddmm"] == before
+
+
+def test_coo_ngcf_groups_keep_launch_counts(dev):
+    """NGCF forwards with the user groups in play: one sddmm launch per
+    layer at O3, two at O2, none at O1 with the plain route; the groups
+    are built once for the graph; O2 and O3 equal O1 (plain) to 1e-4
+    relative in the norm (index_add_ sums in another order)."""
+    from repro_torch.core import graph, ngcf
+    from repro_torch.data import synth
+    from repro_torch.kernels.sddmm import group_edges
+    data = synth.generate_bipartite(500, 300, 8000, seed=1)
+    g = graph.bipartite_from_numpy(data.user, data.item, 500, 300,
+                                   data.n_edges + 100, device=dev)
+    p = ngcf.init_params(1, 500, 300, 64, 2, device=dev)
+    builds = group_edges.builds
+    outs = {}
+    for level, impl, launches in ((3, None, 2), (2, None, 4),
+                                  (1, "torch", 0)):
+        before = launch_counts()["sddmm"]
+        with torch.no_grad():
+            outs[level] = ngcf.forward(p, g, opt_level=level, impl=impl)
+        assert launch_counts()["sddmm"] == before + launches
+    assert group_edges.builds == builds + 1
+    for level in (2, 3):
+        for a, b in zip(outs[level], outs[1]):
+            assert float((a - b).norm()) <= 1e-4 * float(b.norm())
+
+
 def test_coo_ngcf_o3_on_card_matches_plain_route(dev):
     """A small NGCF forward and BPR gradients at O3 on the card: one
     sddmm launch per layer, equal to the same call on the plain route

@@ -6,7 +6,7 @@ at build time through the source's ``REPRO_HADAMARD_*`` macros.
 
     python3 tools/hadamard_sweep.py [--out chiprun_out/hadamard_sweep.jsonl]
 
-Inputs: ``torch_kernel_ab.synthetic_graph`` (the smoke's counts: 349,184
+Inputs: ``synthetic_graph`` below (the smoke's counts: 349,184
 users, 53,248 items, 15,084,083 edges, D = 128, Zipf(0.75) item degrees)
 with standard-normal tables.  Per configuration it times, with CUDA
 events around 5 calls each, the three call shapes of one NGCF layer's
@@ -33,12 +33,38 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from torch_kernel_ab import D, N_ITEMS, N_USERS, events_ms, \
-    synthetic_graph  # noqa: E402
+from torch_kernel_ab import D, EDGES, N_ITEMS, N_USERS, \
+    events_ms  # noqa: E402
 
+ZIPF = 0.75
 CHUNKS = (256, 512, 1024, 2048, 4096)
 # (unroll, min blocks per SM)
 BUILDS = [(u, b) for u in (2, 4, 8) for b in (2, 3, 4, 6)]
+
+
+def synthetic_graph(torch, dev, seed: int = 0) -> dict:
+    """Both CSR directions of a graph with the smoke's counts on ``dev``:
+    item degrees Zipf(ZIPF) by rank, each edge's user uniform.  Keys
+    ``ui_indptr``/``ui_src``/``ui_dst`` (rows = items, src = users) and
+    ``iu_*`` (rows = users, src = items); indptr i64, ids i32."""
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, N_ITEMS + 1, dtype=np.float64) ** -ZIPF
+    deg = np.floor(EDGES * w / w.sum()).astype(np.int64)
+    deg[: EDGES - int(deg.sum())] += 1
+    ui_indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])).to(dev)
+    ui_dst = torch.repeat_interleave(
+        torch.arange(N_ITEMS, dtype=torch.int32, device=dev),
+        torch.from_numpy(deg).to(dev))
+    ui_src = torch.from_numpy(rng.integers(0, N_USERS, EDGES)
+                              .astype(np.int32)).to(dev)
+    order = torch.sort(ui_src, stable=True).indices
+    iu_deg = torch.bincount(ui_src.long(), minlength=N_USERS)
+    iu_indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                           torch.cumsum(iu_deg, 0)])
+    return {"ui_indptr": ui_indptr, "ui_src": ui_src, "ui_dst": ui_dst,
+            "iu_indptr": iu_indptr, "iu_src": ui_dst[order].contiguous(),
+            "iu_dst": ui_src[order].contiguous(),
+            "longest_item_row": int(deg.max())}
 
 
 def build(variants) -> dict:

@@ -1,101 +1,120 @@
 #!/usr/bin/env python3
-"""A/B of the port's row-split ``hadamard_spmm`` and register-blocked
-``fused_topk_score`` against the versions of a parent checkout (one warp
-per destination row; 16 x 64 score tiles of 4 x 1 per thread), on one
-card, in one process.
+"""A/B of the port's ``sddmm``, which walks the edges grouped by user,
+against the edge-order kernel of a parent checkout, on one card, in one
+process.
 
-    python3 tools/torch_kernel_ab.py --parent DIR
+    python3 tools/torch_kernel_ab.py --parent DIR [--variants 128-4-1,...]
 
-DIR holds an unpacked parent commit (``git archive``) whose kernels take
-the C interfaces of the one-warp-per-row ``hadamard_spmm`` and the
-16-user-tile ``fused_topk_score``.  Both versions are built with the
-same nvcc flags and run on the same inputs, in the order parent, change,
-change, parent:
-  * ``hadamard_spmm`` (no epilogue) at NGCF's forward shapes on a
-    synthetic graph with the smoke's counts (``synthetic_graph``: 349,184
-    users, 53,248 items, D = 128, 15,084,083 edges; item degrees
-    Zipf(0.75) by rank, so the longest item row holds ~1.7 % of E, as in
-    the smoke's graph; users uniform): the item direction
-    (``hadamard_agg_item``, 53,248 rows) and the user direction
-    (``hadamard_agg_user``, 349,184 rows), y riding the destination; ms
-    per call, CUDA events around 3 calls;
-  * ``fused_topk_score``: a 256-user batch against 53,248 items, D = 128,
-    ~43 seen items per user, at k = 20 and at k = 256 (the parent's
-    largest k); ms per call, CUDA events around 20 calls.
-Each version is first held to the plain version on the same inputs.
-Prints one JSON line per measurement and a summary line last.
+DIR holds an unpacked parent commit (``git archive``) whose ``sddmm_f32``
+takes the edge-order C interface (op, x, y, src, dst, mask, coeff, out,
+E, D, vec4, device, stream).  The graph has the smoke's counts (349,184
+users, 53,248 items, 15,084,083 edges, D = 128) and is drawn on the card
+as ``synth.generate_bipartite`` draws it: users and items Zipf(1.05),
+duplicate pairs dropped and drawn again until there are enough, both id
+spaces permuted; its
+edges lie in random order, as ``train_test_split`` leaves them.  The
+call is NGCF's O3 message, x the user table and y the item table, with
+~0.1 % of the edges masked.  Then:
+  * the parent, the change with the graph's user groups and the change
+    without groups give the same output bit for bit, for ``mul``,
+    ``add``, ``dot`` and ``copy`` (with coeff);
+  * ``mul`` and ``dot`` are timed in the order parent, change, change,
+    parent (ms per call, CUDA events around 10 calls), and the change
+    without groups once;
+  * each variant C-U-B of ``--variants`` (the source built with
+    ``-DREPRO_SDDMM_CHUNK=C -DREPRO_SDDMM_UNROLL=U
+    -DREPRO_SDDMM_MIN_BLOCKS=B``) is held bitwise to the parent and timed
+    twice on ``mul`` and ``dot``;
+  * the groups' build (one stable sort and three gathers) is timed once;
+  * two write yardsticks on the [E, D] output: ``fill_`` (every row
+    written once, in edge order) and ``index_fill_`` by the groups' perm
+    (every row written once, in the grouped walk's order), so that the
+    cost of the walk's scattered row stores shows apart from its loads;
+  * the change on two re-arranged inputs, to show where its time goes:
+    the same edges sorted by user (the walk's perm is then the identity,
+    so its row stores run in order) and the same edges with every item
+    id folded onto 1,024 rows (a 512 KB item table, L2-resident however
+    much the output streams past it).
+Both versions are built with the same nvcc flags.  Prints one JSON line
+per measurement, the card's name and power limit, and a summary last.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
-import math
 import pathlib
 import subprocess
 import sys
-
-import numpy as np
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
 
-N_USERS, N_ITEMS, EDGES, D, ZIPF = 349_184, 53_248, 15_084_083, 128, 0.75
-TOPK_B, TOPK_KS, SEEN_LEN = 256, (20, 256), 100
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
-# the parent's fused_topk_score tiles (its kernels/topk_score.py)
-PARENT_USER_TILE, PARENT_ITEM_TILE = 16, 64
-
-
-def synthetic_graph(torch, dev, seed: int = 0) -> dict:
-    """Both CSR directions of a graph with the smoke's counts on ``dev``:
-    item degrees Zipf(ZIPF) by rank, each edge's user uniform.  Keys
-    ``ui_indptr``/``ui_src``/``ui_dst`` (rows = items, src = users) and
-    ``iu_*`` (rows = users, src = items); indptr i64, ids i32."""
-    rng = np.random.default_rng(seed)
-    w = np.arange(1, N_ITEMS + 1, dtype=np.float64) ** -ZIPF
-    deg = np.floor(EDGES * w / w.sum()).astype(np.int64)
-    deg[: EDGES - int(deg.sum())] += 1
-    ui_indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)])).to(dev)
-    ui_dst = torch.repeat_interleave(
-        torch.arange(N_ITEMS, dtype=torch.int32, device=dev),
-        torch.from_numpy(deg).to(dev))
-    ui_src = torch.from_numpy(rng.integers(0, N_USERS, EDGES)
-                              .astype(np.int32)).to(dev)
-    order = torch.sort(ui_src, stable=True).indices
-    iu_deg = torch.bincount(ui_src.long(), minlength=N_USERS)
-    iu_indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                           torch.cumsum(iu_deg, 0)])
-    return {"ui_indptr": ui_indptr, "ui_src": ui_src, "ui_dst": ui_dst,
-            "iu_indptr": iu_indptr, "iu_src": ui_dst[order].contiguous(),
-            "iu_dst": ui_src[order].contiguous(),
-            "longest_item_row": int(deg.max())}
+N_USERS, N_ITEMS, EDGES, D, ALPHA = 349_184, 53_248, 15_084_083, 128, 1.05
+MASKED = 0.001
+OPS = ("mul", "add", "dot", "copy")
+TIMED = ("mul", "dot")
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+PARENT_ARGS = [_I] + [_P] * 7 + [_L, _I, _I, _I, _P]
+CHANGE_ARGS = [_I] + [_P] * 8 + [_L, _I, _I, _I, _P]
 
 
-def build_parent(parent: pathlib.Path) -> dict:
+def synthetic_edges(torch, dev, seed: int = 0):
+    """(user, item) i32[EDGES] on ``dev``, in random order."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def zipf(n):
+        p = torch.arange(1, n + 1, device=dev, dtype=torch.float64) ** -ALPHA
+        return (p / p.sum()).float()
+
+    pu, pi = zipf(N_USERS), zipf(N_ITEMS)
+    keys = torch.zeros(0, dtype=torch.int64, device=dev)
+    while keys.numel() < EDGES:
+        m = int((EDGES - keys.numel()) * 1.5) + 1024
+        u = torch.multinomial(pu, m, replacement=True, generator=gen)
+        i = torch.multinomial(pi, m, replacement=True, generator=gen)
+        keys = torch.unique(torch.cat([keys, u * N_ITEMS + i]))
+    order = torch.randperm(keys.numel(), device=dev, generator=gen)
+    keys = keys[order[:EDGES]]
+    uperm = torch.randperm(N_USERS, device=dev, generator=gen)
+    iperm = torch.randperm(N_ITEMS, device=dev, generator=gen)
+    user = uperm[keys // N_ITEMS].to(torch.int32).contiguous()
+    item = iperm[keys % N_ITEMS].to(torch.int32).contiguous()
+    return user, item
+
+
+def build(parent: pathlib.Path, variants) -> dict:
+    """The parent's library and one per variant, all nvcc at once."""
     from repro_torch.kernels import _build
     out_dir = ROOT / "build" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs, procs = {}, []
-    for name in ("hadamard_spmm", "topk_score"):
-        src = parent / "src/repro_torch/kernels/csrc" / f"{name}.cu"
-        so = out_dir / f"parent_{name}.so"
-        procs.append((name, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)])))
-    for name, so, proc in procs:
+    jobs = {"parent": (parent / "src/repro_torch/kernels/csrc/sddmm.cu", [])}
+    for c, u, b in variants:
+        jobs[f"{c}-{u}-{b}"] = (_build.CSRC / "sddmm.cu",
+                                [f"-DREPRO_SDDMM_CHUNK={c}",
+                                 f"-DREPRO_SDDMM_UNROLL={u}",
+                                 f"-DREPRO_SDDMM_MIN_BLOCKS={b}"])
+    procs = {}
+    for name, (src, defs) in jobs.items():
+        so = out_dir / f"sddmm_{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-o", str(so),
+             str(src)]))
+    libs = {}
+    for name, (so, proc) in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on the parent's {name}.cu")
-        libs[name] = ctypes.CDLL(str(so))
-    libs["hadamard_spmm"].hadamard_spmm_f32.argtypes = \
-        [_P] * 6 + [_I, _F, _P] + [_I] * 4 + [_P]
-    libs["topk_score"].fused_topk_score_f32.argtypes = \
-        [_P] * 9 + [_I, _I, _L] + [_I] * 6 + [_P]
+            raise RuntimeError(f"nvcc failed on sddmm {name}")
+        lib = ctypes.CDLL(str(so))
+        lib.sddmm_f32.argtypes = PARENT_ARGS if name == "parent" \
+            else CHANGE_ARGS
+        lib.sddmm_f32.restype = _I
+        libs[name] = lib
     return libs
 
 
-def events_ms(torch, fn, reps: int) -> float:
+def events_ms(torch, fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -108,131 +127,132 @@ def events_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def turns(torch, parent_fn, change_fn, reps: int) -> dict:
-    """ms per call in the order parent, change, change, parent."""
-    times = {"parent_ms": [], "change_ms": []}
-    for who in ("parent", "change", "change", "parent"):
-        fn = parent_fn if who == "parent" else change_fn
-        times[f"{who}_ms"].append(events_ms(torch, fn, reps))
-    return times
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=pathlib.Path)
-    parent = ap.parse_args().parent.resolve()
+    ap.add_argument("--variants", default="",
+                    help="comma-separated C-U-B: chunk, unroll, min "
+                         "blocks per SM")
+    args = ap.parse_args()
+    variants = [tuple(int(v) for v in s.split("-"))
+                for s in args.variants.split(",") if s]
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
-    from repro_torch.kernels import _build, ops, ref
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.sddmm import OP_CODES, group_edges
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    libs = build_parent(parent)
-    _build.build_all(("hadamard_spmm", "topk_score"))
+    libs = build(args.parent.resolve(), variants)
+    _build.build_all(("sddmm",))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rng = np.random.default_rng(0)
+
+    user, item = synthetic_edges(torch, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    xu = torch.randn((N_USERS, D), device=dev, generator=gen)
+    xi = torch.randn((N_ITEMS, D), device=dev, generator=gen)
+    coeff = torch.randn(EDGES, device=dev, generator=gen)
+    mask = torch.rand(EDGES, device=dev, generator=gen) >= MASKED
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups = group_edges(user, item, mask)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    deg = torch.bincount(user.long(), minlength=N_USERS)
+    graph = {"edges": EDGES, "users": N_USERS, "items": N_ITEMS, "d": D,
+             "largest_user_group": int(deg.max()),
+             "largest_item_degree": int(torch.bincount(item.long()).max()),
+             "users_with_edges": int((deg > 0).sum()),
+             "groups_build_ms": build_ms}
+    print(json.dumps({"graph": graph}), flush=True)
+
+    outs = {op: torch.empty((EDGES,) if op == "dot" else (EDGES, D),
+                            device=dev) for op in OPS}
+
+    def parent(op):
+        err = libs["parent"].sddmm_f32(
+            OP_CODES[op], xu.data_ptr(), xi.data_ptr(), user.data_ptr(),
+            item.data_ptr(), mask.data_ptr(),
+            coeff.data_ptr() if op == "copy" else None,
+            outs[op].data_ptr(), EDGES, D, 1, 0, stream)
+        if err:
+            raise RuntimeError(f"parent sddmm {op}: CUDA error {err}")
+        return outs[op]
+
+    def variant(name, op):
+        err = libs[name].sddmm_f32(
+            OP_CODES[op], xu.data_ptr(), xi.data_ptr(),
+            groups.perm.data_ptr(), groups.key_sorted.data_ptr(),
+            groups.other_sorted.data_ptr(), groups.mask_sorted.data_ptr(),
+            coeff.data_ptr() if op == "copy" else None,
+            outs[op].data_ptr(), EDGES, D, 1, 0, stream)
+        if err:
+            raise RuntimeError(f"sddmm {name} {op}: CUDA error {err}")
+        return outs[op]
+
+    def change(op, grouped=True):
+        return ops.sddmm(op, xu, xi, user, item, mask,
+                         coeff if op == "copy" else None, impl="cuda",
+                         groups=groups if grouped else None)
+
+    for op in OPS:
+        want = parent(op).clone()
+        same = {"change": torch.equal(change(op), want),
+                "change_without_groups": torch.equal(change(op, False), want)}
+        for v in variants:
+            name = "-".join(map(str, v))
+            same[name] = torch.equal(variant(name, op), want)
+        del want
+        print(json.dumps({"op": op, "bitwise_equal_to_parent": same}),
+              flush=True)
+        if not all(same.values()):
+            raise RuntimeError(f"sddmm {op}: not bitwise equal to the parent")
     rows = {}
-
-    # hadamard_spmm: NGCF's forward pair, y riding the destination
-    g = synthetic_graph(torch, dev)
-    xu = torch.from_numpy(rng.standard_normal((N_USERS, D))
-                          .astype(np.float32)).to(dev)
-    xi = torch.from_numpy(rng.standard_normal((N_ITEMS, D))
-                          .astype(np.float32)).to(dev)
-    calls = {"hadamard_agg_item": (xu, xi, g["ui_indptr"], g["ui_src"],
-                                   g["ui_dst"], N_ITEMS),
-             "hadamard_agg_user": (xi, xu, g["iu_indptr"], g["iu_src"],
-                                   g["iu_dst"], N_USERS)}
-    for name, args in calls.items():
-        x, y, ip, xi_, yi_, n = args
-
-        def had_parent(x=x, y=y, ip=ip, xi_=xi_, yi_=yi_, n=n):
-            out = torch.empty((n, D), device=dev)
-            err = libs["hadamard_spmm"].hadamard_spmm_f32(
-                x.data_ptr(), y.data_ptr(), ip.data_ptr(), xi_.data_ptr(),
-                yi_.data_ptr(), None, 0, 0.0, out.data_ptr(), n, D, 1, 0,
-                stream)
-            if err:
-                raise RuntimeError(f"parent hadamard_spmm: CUDA error {err}")
-            return out
-
-        def had_change(args=args):
-            return ops.hadamard_spmm(*args, impl="cuda")
-
-        want = ref.hadamard_spmm_ref(*args)
-        abs_sum = ref.hadamard_spmm_ref(x.abs(), y.abs(), ip, xi_, yi_, n)
-        for fn, what in ((had_parent, "parent"), (had_change, "change")):
-            if not bool(((fn() - want).abs() <= 1e-5 + 1e-5 * abs_sum).all()):
-                raise RuntimeError(f"hadamard_spmm {what} disagrees with the "
-                                   "plain version")
-        del want, abs_sum
-        rows[name] = {"work": f"{n} rows, {xi_.numel()} edges, D={D}, "
-                              f"longest item row {g['longest_item_row']}",
-                      **turns(torch, had_parent, had_change, reps=3)}
-        print(json.dumps({"kernel": "hadamard_spmm", "call": name,
-                          **rows[name]}), flush=True)
-    del g, calls, xu, xi
-    torch.cuda.empty_cache()
-
-    # fused_topk_score: one 256-user batch against the whole catalogue
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ue = torch.from_numpy(rng.standard_normal((TOPK_B, D))
-                          .astype(np.float32)).to(dev)
-    table = torch.from_numpy(rng.standard_normal((N_ITEMS, D))
-                             .astype(np.float32)).to(dev)
-    seen = torch.from_numpy(rng.integers(0, N_ITEMS, (TOPK_B, SEEN_LEN))
-                            .astype(np.int32)).to(dev)
-    smask = torch.from_numpy(rng.random((TOPK_B, SEEN_LEN)) < 0.43).to(dev)
-    n_tiles = math.ceil(N_ITEMS / PARENT_ITEM_TILE)
-    splits = max(1, min(n_tiles, 65_535, math.ceil(
-        2 * sms / math.ceil(TOPK_B / PARENT_USER_TILE))))
-    per = math.ceil(n_tiles / splits)
-    splits = math.ceil(n_tiles / per)
-    for k in TOPK_KS:
-        part_s = torch.empty((splits, TOPK_B, k), device=dev)
-        part_i = torch.empty((splits, TOPK_B, k), dtype=torch.int32,
-                             device=dev)
-        bits = torch.empty((TOPK_B, math.ceil(N_ITEMS / 32)),
-                           dtype=torch.int32, device=dev)
-
-        def topk_parent(k=k, part_s=part_s, part_i=part_i, bits=bits):
-            out_s = torch.empty((TOPK_B, k), device=dev)
-            out_i = torch.empty((TOPK_B, k), dtype=torch.int32, device=dev)
-            err = libs["topk_score"].fused_topk_score_f32(
-                ue.data_ptr(), table.data_ptr(), seen.data_ptr(),
-                smask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                part_s.data_ptr(), part_i.data_ptr(), bits.data_ptr(),
-                TOPK_B, D, N_ITEMS, N_ITEMS, SEEN_LEN, k, per, splits, 0,
-                stream)
-            if err:
-                raise RuntimeError(f"parent fused_topk_score: error {err}")
-            return out_s, out_i
-
-        def topk_change(k=k):
-            return ops.fused_topk_score(ue, table, seen, smask, k=k,
-                                        n_items=N_ITEMS, impl="cuda")
-
-        s_p, i_p = ref.fused_topk_score_ref(ue, table, seen, smask, k=k,
-                                            n_items=N_ITEMS, item_block=1024)
-        for fn, what in ((topk_parent, "parent"), (topk_change, "change")):
-            s_k, i_k = fn()
-            chip_smoke.topk_agree(s_k.cpu(), i_k.cpu(), s_p.cpu(), i_p.cpu(),
-                                  f"fused_topk_score k={k} {what}")
-        key = f"fused_topk_score k={k}"
-        rows[key] = {"work": f"B={TOPK_B} I={N_ITEMS} D={D} k={k}",
-                     **turns(torch, topk_parent, topk_change, reps=20)}
-        print(json.dumps({"kernel": "fused_topk_score", "k": k,
-                          **rows[key]}), flush=True)
+    for op in TIMED:
+        times = {"parent_ms": [], "change_ms": []}
+        for who in ("parent", "change", "change", "parent"):
+            fn = (lambda: parent(op)) if who == "parent" \
+                else (lambda: change(op))
+            times[f"{who}_ms"].append(events_ms(torch, fn))
+        times["change_without_groups_ms"] = events_ms(
+            torch, lambda: change(op, False))
+        for v in variants:
+            name = "-".join(map(str, v))
+            times[f"chunk-unroll-minblocks {name} ms"] = [
+                events_ms(torch, lambda: variant(name, op)) for _ in range(2)]
+        rows[op] = times
+        print(json.dumps({"kernel": "sddmm", "op": op,
+                          "work": f"E={EDGES} D={D}, x users, y items",
+                          **times}), flush=True)
+    out, perm = outs["mul"], groups.perm.long()
+    writes = {"fill_ms": events_ms(torch, lambda: out.fill_(0.0)),
+              "index_fill_by_perm_ms": events_ms(
+                  torch, lambda: out.index_fill_(0, perm, 0.0)),
+              "bytes": out.numel() * 4}
+    print(json.dumps({"write_yardsticks": writes}), flush=True)
+    del out, perm
+    order = groups.perm.long()
+    inputs = {"edges_sorted_by_user": (
+        xu, xi, user[order].contiguous(), item[order].contiguous(),
+        mask[order].contiguous()),
+        "items_folded_to_1024_rows": (xu, xi, user, item % 1024, mask)}
+    diag = {}
+    for name, (x, y, src, dst, m) in inputs.items():
+        grp = group_edges(src, dst, m)
+        for op in TIMED:
+            diag[f"{name} {op} ms"] = events_ms(torch, lambda: ops.sddmm(
+                op, x, y, src, dst, m, impl="cuda", groups=grp))
+        del grp
+    print(json.dumps({"rearranged_inputs": diag}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ab": {k: {"parent_ms": min(v["parent_ms"]),
-                                 "change_ms": min(v["change_ms"])}
-                             for k, v in rows.items()}, "card": smi}),
-          flush=True)
+    print(json.dumps({"ab": {op: {"parent_ms": min(v["parent_ms"]),
+                                  "change_ms": min(v["change_ms"])}
+                             for op, v in rows.items()},
+                      "groups_build_ms": build_ms, "card": smi}), flush=True)
     return 0
 
 
