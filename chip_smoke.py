@@ -101,6 +101,13 @@ TARGET_BATCH, MICROBATCH, TRAIN_STEPS = 150_528, 75_264, 3
 # float32 on this graph (gradients inf/NaN), with 2 it stays finite.
 TRAIN_LAYERS = 2
 GRAD_RTOL = 1e-4           # per gradient leaf, relative in the norm
+# the api phase: LightGCN-FULL (the lightgcn-full preset with the training
+# phase's microbatch) for API_STEPS steps through Run.fit; Run.recommend for
+# N_RECOMMEND held-out users; the CPU-sized presets against the CPU's plain
+# route, loss trajectories within API_RTOL
+API_STEPS, N_RECOMMEND = 3, 256
+API_PRESETS = ("quickstart", "lightgcn-smoke")
+API_RTOL = 1e-4
 # seed COO path: O0's backward keeps ~5 [E, D] tensors per layer, so O0 is
 # timed against O3 on the first 2^22 train edges; the cells' step uses the
 # reference cells' optimizer (src/repro/launch/cells.py:36: adam(1e-4))
@@ -121,7 +128,8 @@ TOLERANCE = {
     "spmm_csr": f"adversarial: allclose rtol={RTOL} atol={ATOL}; row-split "
                 f"cases and main: |err| <= {ATOL} + {RTOL} * sum of |terms| "
                 "per element (max: exact); repeated calls bitwise",
-    "embedding_bag": f"allclose rtol={RTOL} atol={ATOL}",
+    "embedding_bag": "bitwise (sum and mean, L = 1 to 8, masked and "
+                     "unmasked, int32 and int64 ids)",
     "fused_topk_score": "ids and scores bitwise on integer-valued inputs; "
                         f"else scores allclose rtol={RTOL} atol={ATOL} and "
                         "ids equal except at near-ties",
@@ -157,6 +165,7 @@ SERVING_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 ANN_KERNELS = ("embedding_bag", "fused_topk_score", "ann_block_scores")
 TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
 COO_KERNELS = ("sddmm",)
+API_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 # spmm_csr's row-split cases (check_spmm); gathered rows come from a table
 # of SPLIT_SRC_ROWS rows
 SPLIT_CASES = ("long_row", "boundaries", "no_edges", "long_indptr")
@@ -408,11 +417,12 @@ def split_graph(case, rng, t):
 
 
 def check_embedding_bag(torch, dev, rng) -> float:
-    """L > 1 with a mask (one bag fully masked), sum and mean, D % 4 != 0."""
+    """L > 1 with a mask (one bag fully masked), without a mask, int32 and
+    int64 ids, sum and mean, D % 4 != 0: bitwise against the plain
+    version (both sum each bag's slots in slot order)."""
     from repro_torch.kernels import ops, ref
-    worst = 0.0
     for v, b, l, d in [(1000, 300, 5, 128), (17, 5, 3, 100), (33, 7, 2, 130),
-                       (9, 1, 4, 37)]:
+                       (9, 1, 4, 37), (1000, 256, 1, 128), (1000, 256, 8, 128)]:
         table = torch.from_numpy(
             rng.standard_normal((v, d)).astype(np.float32)).to(dev)
         ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(np.int32)).to(dev)
@@ -420,13 +430,56 @@ def check_embedding_bag(torch, dev, rng) -> float:
         mask_np[0, :] = False
         mask = torch.from_numpy(mask_np).to(dev)
         for combiner in ("sum", "mean"):
+            for m in (mask, None):
+                want = ref.embedding_bag_ref(table, ids, m, combiner)
+                for i in (ids, ids.long()):
+                    got = ops.embedding_bag(table, i, m, combiner,
+                                            impl="cuda")
+                    require(torch.equal(got, want),
+                            f"embedding_bag {combiner} L={l} d={d} "
+                            f"{i.dtype} mask={m is not None}: not bitwise "
+                            "equal to the plain version")
             got = ops.embedding_bag(table, ids, mask, combiner, impl="cuda")
-            want = ref.embedding_bag_ref(table, ids, mask, combiner)
-            torch.cuda.synchronize()
-            worst = max(worst, close(torch, got, want,
-                                     f"embedding_bag {combiner} L={l} d={d}"))
             require(bool((got[0] == 0).all()), "embedding_bag empty bag != 0")
-    return worst
+    return 0.0
+
+
+def itemise_embedding_bag(torch, table, ids, calls: int = 10_000) -> dict:
+    """Host µs per piece of ``embedding_bag``'s launch path at the main
+    path's call (``ids`` [B, 1], no mask), each over ``calls`` calls on a
+    host clock, with the alternatives each piece was chosen over: the
+    checks, the output's allocation (``new_empty`` against
+    ``torch.empty``), the stream query (``_build.stream_of`` against a
+    ``torch.cuda.current_stream`` object), the cached C call with its
+    launch, the whole wrapper, and ``_gather_rows`` as the main path calls
+    it."""
+    from repro_torch.eval.topk import _gather_rows
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import (check_inputs,
+                                                   embedding_bag_cuda)
+    b, bag_len = ids.shape
+    d = table.shape[1]
+    out = table.new_empty((b, d))
+    fn = _build.entry("embedding_bag", "embedding_bag_f32")
+    args = (table.data_ptr(), ids.data_ptr(), None, out.data_ptr(), b,
+            bag_len, d, 0, 1, int(ids.dtype is torch.int64),
+            *_build.stream_of(table))
+    flat = ids[:, 0]
+    return {
+        "checks": host_us(torch, lambda: check_inputs(table, ids, None),
+                          calls),
+        "new_empty": host_us(torch, lambda: table.new_empty((b, d)), calls),
+        "torch_empty": host_us(torch, lambda: torch.empty(
+            (b, d), dtype=torch.float32, device=table.device), calls),
+        "stream_of": host_us(torch, lambda: _build.stream_of(table), calls),
+        "current_stream_object": host_us(
+            torch, lambda: torch.cuda.current_stream(table.device).cuda_stream,
+            calls),
+        "ctypes_call_with_launch": host_us(torch, lambda: fn(*args), calls),
+        "wrapper": host_us(torch, lambda: embedding_bag_cuda(table, ids, None),
+                           calls),
+        "gather_rows": host_us(torch, lambda: _gather_rows(table, flat,
+                                                           "cuda"), calls)}
 
 
 def _topk_case(rng, case):
@@ -680,6 +733,7 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
     inputs."""
     from repro_torch.eval.topk import _gather_rows, _padded_seen
     from repro_torch.kernels import ops, ref, row_split
+    from repro_torch.kernels.embedding_bag import noop_cuda
     from repro_torch.kernels.spmm import CHUNK
     dev = user_f.device
     out = {}
@@ -726,39 +780,49 @@ def time_kernels(torch, g, params, user_f, item_f, eval_users, errs):
                            bound_ms=b_ms, bound_by=b_by, per_direction=per_dir,
                            work=f"one layer: agg_u2i + agg_i2u, D={EMBED_DIM}")
 
-    # embedding_bag: the user-row gather of one 256-user batch (L = 1)
+    # embedding_bag: the user-row gather of one 256-user batch (L = 1), as
+    # _gather_rows makes it: the batch's int32 ids, no mask
     users = torch.from_numpy(eval_users[:USER_BATCH]).to(dev)
     ids = users.to(torch.int32)[:, None].contiguous()
-    mask = torch.ones_like(ids, dtype=torch.bool)
     got = _gather_rows(user_f, users, "cuda")
-    want = ref.embedding_bag_ref(user_f, ids, mask, "sum")
-    errs["embedding_bag"] = max(errs["embedding_bag"],
-                                close(torch, got, want, "embedding_bag main"))
-    t_k = cuda_ms(torch, lambda: ops.embedding_bag(user_f, ids, mask, "sum",
-                                                   impl="cuda"), reps=50)
-    t_p = cuda_ms(torch, lambda: ref.embedding_bag_ref(user_f, ids, mask,
-                                                       "sum"), reps=50)
+    want = ref.embedding_bag_ref(user_f, ids, None, "sum")
+    require(torch.equal(got, want),
+            "embedding_bag main: not bitwise equal to the plain version")
+    errs["embedding_bag"] = max(errs["embedding_bag"], max_err(got, want))
     ids64 = ids.long()
 
     def bag_kernel():
-        return ops.embedding_bag(user_f, ids, mask, "sum", impl="cuda")
+        return ops.embedding_bag(user_f, ids, None, "sum", impl="cuda")
 
     def bag_library():
         return torch.nn.functional.embedding_bag(ids64, user_f, mode="sum")
 
+    t_k = cuda_ms(torch, bag_kernel, reps=50)
+    t_p = cuda_ms(torch, lambda: ref.embedding_bag_ref(user_f, ids, None,
+                                                       "sum"), reps=50)
     t_l = cuda_ms(torch, bag_library, reps=50)
-    b_ms, b_by = bound(ids.numel() * EMBED_DIM * 4 + ids.numel() * 5
+    b_ms, b_by = bound(ids.numel() * EMBED_DIM * 4 + ids.numel() * 4
                        + ids.numel() * EMBED_DIM * 4, ids.numel() * EMBED_DIM)
+
+    def noop():
+        return noop_cuda(user_f)
+
     out["embedding_bag"] = dict(
         ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
         device_ms=device_ms(torch, bag_kernel),
         library_device_ms=device_ms(torch, bag_library),
-        host_us_per_call=host_us(torch, bag_kernel),
-        library_host_us_per_call=host_us(torch, bag_library),
+        host_us_per_call=host_us(torch, bag_kernel, 10_000),
+        library_host_us_per_call=host_us(torch, bag_library, 10_000),
+        launch_floor_device_ms=device_ms(torch, noop),
+        launch_floor_host_us=host_us(torch, noop, 10_000),
+        host_path_us=itemise_embedding_bag(torch, user_f, ids),
         timing="ms: 50 Python calls between CUDA events; device_ms: 100 "
                "calls captured in a CUDA graph and replayed; "
-               "host_us_per_call: 1,000 calls on a host clock",
-        work=f"B={ids.shape[0]} L=1 D={EMBED_DIM}")
+               "host_us_per_call: 10,000 calls on a host clock; "
+               "launch_floor: an empty kernel (repro_noop) through the "
+               "same launch path; host_path_us: each piece of the "
+               "wrapper's host path over 10,000 calls",
+        work=f"B={ids.shape[0]} L=1 D={EMBED_DIM}, int32 ids, no mask")
 
     # fused_topk_score: one 256-user batch against the whole catalogue
     ue = _gather_rows(user_f, users, "cuda")
@@ -1480,6 +1544,206 @@ def time_hadamard(torch, pipe, params, errs):
     return out
 
 
+# ------------------------------------------------------------------ api
+def _leaves_equal(torch, a, b) -> bool:
+    from repro_torch.optim.optimizers import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _timed_saves(saves):
+    """The loop's ``save_checkpoint``, timed: each save's seconds and the
+    bytes it wrote."""
+    from repro_torch.runtime import loop as loop_mod
+    save = loop_mod.save_checkpoint
+
+    def timed(ckpt_dir, step, tree, async_=False):
+        t0 = time.perf_counter()
+        writer = save(ckpt_dir, step, tree, async_=async_)
+        if writer is not None:
+            writer.join()
+        step_dir = pathlib.Path(ckpt_dir) / f"step_{step}"
+        saves.append({"step": step, "s": time.perf_counter() - t0,
+                      "bytes": sum(f.stat().st_size
+                                   for f in step_dir.iterdir())})
+        return None
+
+    return loop_mod, save, timed
+
+
+class StepTimer:
+    """A ``Pipeline.step_context`` that times each step the loop drives
+    (host clock between two synchronisations)."""
+
+    def __init__(self, torch, inner):
+        self.torch, self.inner, self.ms = torch, inner, []
+
+    def __call__(self):
+        return self
+
+    def __enter__(self):
+        self.ctx = self.inner()
+        self.ctx.__enter__()
+        self.torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - self.t0) * 1e3)
+        return self.ctx.__exit__(*exc)
+
+
+def api_presets(torch, dev) -> dict:
+    """``quickstart`` and ``lightgcn-smoke`` through ``Run.fit()`` and
+    ``Run.evaluate()`` on the card and on the CPU's plain route, from the
+    same (the CPU run's) init: loss trajectories within rtol API_RTOL."""
+    from repro_torch.api import build, get_preset, load_data
+    from repro_torch.optim.optimizers import tree_map
+    out = {}
+    for name in API_PRESETS:
+        spec = get_preset(name)
+        train, holdout = load_data(spec.data)
+        cpu = build(spec, train=train, holdout=holdout, device="cpu")
+        card = build(spec, train=train, holdout=holdout, device=dev)
+        card.state = tree_map(lambda t: t.to(dev), cpu.state)
+        t0 = time.perf_counter()
+        rep = card.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        metrics = card.evaluate()
+        want = cpu.fit()
+        want_metrics = cpu.evaluate()
+        got, ref_l = np.array(rep.losses), np.array(want.losses)
+        require(len(got) == spec.loop.steps and np.isfinite(got).all(),
+                f"api {name}: {len(got)} losses or non-finite")
+        rel = float(np.max(np.abs(got - ref_l) / np.abs(ref_l)))
+        require(rel <= API_RTOL, f"api {name}: loss trajectory off the "
+                                 f"plain route's by {rel} (rtol {API_RTOL})")
+        require(all(0.0 <= v <= 1.0 for v in metrics.values()),
+                f"api {name}: metrics out of [0, 1]: {metrics}")
+        out[name] = {"steps": len(got), "fit_s": fit_s,
+                     "first_loss": float(got[0]), "last_loss": float(got[-1]),
+                     "loss_max_rel_err_vs_cpu": rel, "metrics": metrics,
+                     "cpu_metrics": want_metrics}
+    return out
+
+
+def api_phase(torch, dev, train, test):
+    """LightGCN-FULL through the Experiment API (``Experiment.from_preset``
+    -> ``build`` -> ``Run.fit``/``evaluate``/``recommend``) on the smoke's
+    graph, a checkpointed run resumed bit for bit, then the CPU-sized
+    presets against the plain route.  Returns the launches of the main
+    run (fit, evaluate, recommend)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.api import Experiment
+    from repro_torch.eval import Recommender
+    exp = Experiment.from_preset("lightgcn-full", {
+        "plan.microbatch": MICROBATCH, "loop.steps": API_STEPS})
+    spec = exp.spec
+    require((spec.model.arch, spec.model.embed_dim, spec.model.n_layers,
+             spec.data.n_users, spec.data.n_items,
+             spec.plan.target_batch) == ("lightgcn", EMBED_DIM, N_LAYERS,
+                                         N_USERS, N_ITEMS, TARGET_BATCH),
+            "the lightgcn-full preset is not LightGCN FULL")
+    t0 = time.perf_counter()
+    run = exp.build(train=train, holdout=test, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # the preset's schedule: epoch 0 is a warm-up epoch (target/10), one
+    # microbatch of MICROBATCH a step at the linearly scaled LR
+    micro = run.pipeline.plan.microbatches_for_epoch(0)
+    lr = run.pipeline.lr_for_epoch(0)
+
+    timer = StepTimer(torch, run.pipeline.step_context)
+    run.pipeline.step_context = timer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = run.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    del run.pipeline.step_context
+    t0 = time.perf_counter()
+    metrics = run.evaluate()
+    eval_s = time.perf_counter() - t0
+    users = np.nonzero(np.bincount(test.user, minlength=N_USERS))[0]
+    users = users[:N_RECOMMEND]
+    t0 = time.perf_counter()
+    ids, scores = run.recommend(users)
+    recommend_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for name in API_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the api path")
+    losses = report.losses
+    require(report.steps_run == API_STEPS and np.isfinite(losses).all(),
+            f"api: {report.steps_run} steps, losses {losses}")
+    require(all(0.0 <= v <= 1.0 for v in metrics.values()),
+            f"api: metrics out of [0, 1]: {metrics}")
+    plain = Recommender.from_pipeline(run.pipeline, run.state, impl="torch",
+                                      k=spec.eval.k)
+    before = kernels.launch_counts()
+    p_ids, p_scores = plain.recommend(users)
+    require(kernels.launch_counts() == before,
+            "the plain route launched a kernel")
+    excused = topk_agree(scores, ids, p_scores, p_ids, "api recommend")
+    del plain
+
+    # a checkpointed run of 2 steps, then a third run resumed from it for
+    # 1 step: the same loss and state as the uninterrupted run, bit for bit
+    ck = tempfile.mkdtemp(prefix="api_ckpt_", dir=ROOT / "build")
+    saves = []
+    loop_mod, save, timed = _timed_saves(saves)
+    try:
+        first = exp.override({"loop.ckpt_dir": ck, "loop.ckpt_every": 2}) \
+            .build(train=train, holdout=test, device=dev)
+        loop_mod.save_checkpoint = timed
+        try:
+            rep2 = first.fit(steps=2)
+        finally:
+            loop_mod.save_checkpoint = save
+        del first
+        torch.cuda.empty_cache()
+        resumed = exp.build(train=train, holdout=test, device=dev)
+        t0 = time.perf_counter()
+        resumed.resume(ck)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rep3 = resumed.fit(steps=1)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    require(rep2.losses == losses[:2],
+            f"api: the checkpointed run's losses {rep2.losses} differ from "
+            f"{losses[:2]}")
+    require(rep3.losses == losses[2:],
+            f"api: the resumed loss {rep3.losses} differs from {losses[2:]}")
+    require(_leaves_equal(torch, resumed.state, run.state),
+            "api: the resumed state differs from the uninterrupted run's")
+    del resumed
+    describe = run.describe().splitlines()[0]
+    del run
+    torch.cuda.empty_cache()
+    presets = api_presets(torch, dev)
+    emit({"phase": "api", "preset": "lightgcn-full",
+          "overrides": {"plan.microbatch": MICROBATCH,
+                        "loop.steps": API_STEPS},
+          "describe": describe, "build_s": build_s,
+          "microbatches_per_step": micro, "lr": lr, "fit_s": fit_s,
+          "ms_per_step": timer.ms, "losses": losses,
+          "eval_s": eval_s, "metrics": metrics,
+          "eval_users": int(len(np.unique(test.user))),
+          "recommend_users": int(len(users)), "recommend_s": recommend_s,
+          "recommend_near_tie_id_swaps_vs_plain": excused,
+          "resume": {"saves": saves, "restore_s": restore_s,
+                     "resumed_loss": rep3.losses[0],
+                     "bitwise_equal_to_uninterrupted": True},
+          "presets": presets, "launches": launches})
+    return launches
+
+
 # ------------------------------------------------------------------ phase 7
 def check_sddmm(torch, dev, rng) -> float:
     """All four ops, coeff None and given, ~30% of edges masked (the first
@@ -2069,6 +2333,8 @@ def main() -> int:
     times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
     del layer0
     torch.cuda.empty_cache()
+    api_launches = api_phase(torch, dev, train, test)
+    torch.cuda.empty_cache()
     with torch.no_grad():
         errs["sddmm"] = check_sddmm(torch, dev, rng)
     emit({"phase": "adversarial", "kernel": "sddmm",
@@ -2081,7 +2347,8 @@ def main() -> int:
     paths = {"serving": {k: serve_launches[k] for k in SERVING_KERNELS},
              "ann_serving": {k: ann_launches[k] for k in ANN_KERNELS},
              "training": {k: train_launches[k] for k in TRAINING_KERNELS},
-             "coo": {k: coo_launches[k] for k in COO_KERNELS}}
+             "coo": {k: coo_launches[k] for k in COO_KERNELS},
+             "api": {k: api_launches[k] for k in API_KERNELS}}
     emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -2094,7 +2361,10 @@ def main() -> int:
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"],
                      **{k: t[k] for k in ("device_ms", "library_device_ms",
-                                          "dot") if k in t}})
+                                          "host_us_per_call",
+                                          "launch_floor_device_ms",
+                                          "launch_floor_host_us", "dot")
+                        if k in t}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

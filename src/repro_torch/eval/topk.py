@@ -45,10 +45,11 @@ DEFAULT_ITEM_BLOCK = 1024
 
 
 def _gather_rows(table: torch.Tensor, ids: torch.Tensor, impl):
-    """Row gather through the kernel dispatch (bag of length 1)."""
-    ids = ids.to(torch.int32).reshape(-1, 1).contiguous()
-    mask = torch.ones_like(ids, dtype=torch.bool)
-    return kops.embedding_bag(table, ids, mask, "sum", impl=impl)
+    """Row gather through the kernel dispatch (bags of length 1): the
+    caller's int32 or int64 ids as they are and no mask, so on the card
+    one allocation and one launch."""
+    return kops.embedding_bag(table, ids.reshape(-1, 1), None, "sum",
+                              impl=impl)
 
 
 def _padded_seen(user_ids: torch.Tensor, indptr: torch.Tensor,

@@ -8,6 +8,12 @@ builds it (``load``), and ``build_all`` builds several at once, one
 ``build/repro_torch/`` at the repo root (listed in ``.gitignore``), named
 by a hash of their source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header never loads a stale library.
+
+The wrappers' launch path goes through ``entry`` (the C function, looked
+up once) and ``stream_of`` (the device index and the raw handle of its
+current stream, without building a Python ``Stream``): a row gather's
+kernel takes ~1.6 µs on the card, so the host's share of each call is
+what the caller feels.
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ SIGNATURES = {
                               _L, _L, _I, _I, _I, _P),
     },
     "embedding_bag": {
-        "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
+        "repro_noop": (_I, _P),
     },
     "ann_block_scores": {
         "ann_block_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -55,6 +63,8 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}              # C function name -> ctypes function
+_raw_stream = None
 
 
 def _nvcc() -> str:
@@ -143,3 +153,26 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.repro_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def entry(name: str, fn: str):
+    """The C function ``fn`` of library ``name``, built and looked up on
+    first use, then cached."""
+    f = _entries.get(fn)
+    if f is None:
+        f = _entries[fn] = getattr(load(name), fn)
+    return f
+
+
+def stream_of(t) -> tuple[int, int]:
+    """(device index, raw ``cudaStream_t`` of that device's current stream)
+    for a CUDA tensor: ``torch._C._cuda_getCurrentRawStream``, the call
+    PyTorch's own generated code makes, instead of
+    ``torch.cuda.current_stream(dev).cuda_stream``, which builds a Python
+    ``Stream`` and a ``device`` object per call."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    index = t.get_device()
+    return index, _raw_stream(index)

@@ -21,8 +21,6 @@ the plain version does, so integer-valued inputs are bitwise.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -57,13 +55,12 @@ def ann_block_scores_cuda(ue: torch.Tensor, centroids_q: torch.Tensor,
         return out
     vec16 = d % 16 == 0 and ue.data_ptr() % 16 == 0 \
         and centroids_q.data_ptr() % 16 == 0
-    lib = _build.load("ann_block_scores")
-    err = lib.ann_block_scores_f32(
+    err = _build.entry("ann_block_scores", "ann_block_scores_f32")(
         ue.data_ptr(), centroids_q.data_ptr(), scale.data_ptr(),
         radius.data_ptr(), out.data_ptr(), b, nb, d, int(vec16),
-        ue.device.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(ue.device).cuda_stream))
-    _build.check(lib, err, "ann_block_scores")
+        *_build.stream_of(ue))
+    if err:
+        _build.check(_build.load("ann_block_scores"), err, "ann_block_scores")
     ann_block_scores_cuda.launches += 1
     return out
 

@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 // TU users x TB centroids per block, MU x MB outputs per thread, D staged
@@ -189,7 +191,7 @@ extern "C" int ann_block_scores_f32(const void* ue, const void* cq, const void* 
                                     const void* radius, void* out, int n_users,
                                     int n_blocks, int d, int vec16, int device,
                                     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const float* u = static_cast<const float*>(ue);
   const int8_t* c = static_cast<const int8_t*>(cq);

@@ -37,6 +37,7 @@
 // (tools/hadamard_sweep.py); the chunk size is an argument.
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "row_split.cuh"
 
 #ifndef REPRO_HADAMARD_UNROLL
@@ -227,7 +228,7 @@ extern "C" int hadamard_spmm_f32(const void* x, const void* y, const void* indpt
                                  void* partial, const void* scale, int leaky, float slope,
                                  void* out, int n_rows, long long n_chunks, long long chunk,
                                  int d, int vec4, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);

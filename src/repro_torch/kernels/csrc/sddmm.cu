@@ -48,6 +48,8 @@
 // shape's scale.
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 #ifndef REPRO_SDDMM_CHUNK
 #define REPRO_SDDMM_CHUNK 256
 #endif
@@ -279,7 +281,7 @@ extern "C" int sddmm_f32(int op, const void* g, const void* o, const void* perm,
                          const void* key, const void* other, const void* live,
                          const void* coeff, void* out, long long n_edges, int d, int vec4,
                          int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (op < kMul || op > kCopy) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
 #include "row_split.cuh"
 
 namespace {
@@ -202,7 +203,7 @@ extern "C" int spmm_csr_f32(const void* values, const void* indptr, const void* 
                             const void* chunk_row, void* partial, void* out, int n_rows,
                             long long n_chunks, long long chunk, int d, int gather,
                             int reduce_max, int vec4, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const float* v = static_cast<const float*>(values);
   const long long* ip = static_cast<const long long*>(indptr);

@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -713,7 +715,7 @@ extern "C" int fused_topk_score_f32(const void* ue, const void* table, const voi
                                     int d, long long n_rows, int n_items, int seen_len,
                                     int k, int tiles_per_split, int splits, int vec4,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int words = (n_items + 31) / 32;

@@ -32,8 +32,6 @@ The CUDA kernel needs no structure: it runs the general form on
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build, row_split
@@ -91,16 +89,15 @@ def hadamard_spmm_cuda(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
     partial = torch.empty((n_chunks, 2, d), dtype=torch.float32,
                           device=x.device)
     vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, out))
-    lib = _build.load("hadamard_spmm")
-    err = lib.hadamard_spmm_f32(
+    err = _build.entry("hadamard_spmm", "hadamard_spmm_f32")(
         x.data_ptr(), y.data_ptr(), indptr.data_ptr(), x_idx.data_ptr(),
         y_idx.data_ptr(), rows.data_ptr(), partial.data_ptr(),
         scale.data_ptr() if scale is not None else None,
         int(slope is not None), float(slope) if slope is not None else 0.0,
         out.data_ptr(), n_nodes, n_chunks, CHUNK, d, int(vec4),
-        x.device.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(lib, err, "hadamard_spmm")
+        *_build.stream_of(x))
+    if err:
+        _build.check(_build.load("hadamard_spmm"), err, "hadamard_spmm")
     hadamard_spmm_cuda.launches += 1
     return out
 

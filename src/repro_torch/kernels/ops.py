@@ -74,6 +74,10 @@ def hadamard_spmm(x, y, indptr, x_idx, y_idx, n_nodes, scale=None,
 
 
 def embedding_bag(table, ids, mask, combiner="sum", impl=None):
+    """Bags of rows: out[b] = sum_l mask[b, l] * table[ids[b, l]] ('mean'
+    divides by the live count).  Beyond the reference's signature the
+    port takes int64 ids as well as int32, and ``mask=None`` for every
+    slot live (the row gathers of ``eval/topk.py``)."""
     if route(impl, table) == "torch":
         return _ref.embedding_bag_ref(table, ids, mask, combiner)
     return embedding_bag_cuda(table, ids, mask, combiner)

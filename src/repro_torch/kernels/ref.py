@@ -91,16 +91,29 @@ def hadamard_spmm_ref(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
 
 
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
-                      mask: torch.Tensor, combiner: str = "sum") -> torch.Tensor:
+                      mask: torch.Tensor | None,
+                      combiner: str = "sum") -> torch.Tensor:
     """out[b] = sum_l mask[b, l] * table[ids[b, l]]; 'mean' divides by
-    max(count, 1)."""
+    max(count, 1).  ``mask=None`` means every slot is live, with the same
+    bits as an all-true mask.  The slots are added one at a time onto
+    zeros, in slot order, as the kernel adds them, so both give the same
+    bits (a masked slot adds +0.0, which leaves a sum that started from
+    +0.0 as it was)."""
     if combiner not in ("sum", "mean"):
         raise ValueError(combiner)
     rows = table[ids.long()]                           # [B, L, D]
-    rows = torch.where(mask[..., None], rows, 0.0)
-    out = rows.sum(dim=1)
+    if mask is not None:
+        rows = torch.where(mask[..., None], rows, 0.0)
+    out = torch.zeros((rows.shape[0], rows.shape[2]), dtype=rows.dtype,
+                      device=rows.device)
+    for slot in range(rows.shape[1]):
+        out = out + rows[:, slot]
     if combiner == "mean":
-        cnt = mask.sum(dim=1).clamp_min(1)
+        if mask is None:
+            cnt = torch.full((ids.shape[0],), max(ids.shape[1], 1),
+                             dtype=torch.int64, device=out.device)
+        else:
+            cnt = mask.sum(dim=1).clamp_min(1)
         out = out / cnt[:, None]
     return out
 

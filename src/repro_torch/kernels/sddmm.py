@@ -37,7 +37,6 @@ with masked edges' cotangents zeroed first.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -160,15 +159,14 @@ def sddmm_cuda(op: str, x: torch.Tensor, y: torch.Tensor, src: torch.Tensor,
     if e == 0:
         return out
     vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, out))
-    lib = _build.load("sddmm")
-    err = lib.sddmm_f32(
+    err = _build.entry("sddmm", "sddmm_f32")(
         OP_CODES[op], g_tab.data_ptr(), o_tab.data_ptr(),
         None if perm is None else perm.data_ptr(), key.data_ptr(),
         other.data_ptr(), live.data_ptr(),
         coeff.data_ptr() if use_coeff else None, out.data_ptr(), e, d,
-        int(vec4), x.device.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(lib, err, "sddmm")
+        int(vec4), *_build.stream_of(x))
+    if err:
+        _build.check(_build.load("sddmm"), err, "sddmm")
     sddmm_cuda.launches += 1
     return out
 

@@ -19,8 +19,6 @@ the same bits on every call; no host read per call.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -63,16 +61,14 @@ def spmm_csr_cuda(reduce: str, values: torch.Tensor, indptr: torch.Tensor,
                           device=values.device)
     vec4 = d % 4 == 0 and values.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
-    lib = _build.load("spmm_csr")
-    err = lib.spmm_csr_f32(values.data_ptr(), indptr.data_ptr(),
-                           src_sorted.data_ptr() if gather else None,
-                           rows.data_ptr(), partial.data_ptr(),
-                           out.data_ptr(), n_nodes, n_chunks, CHUNK, d,
-                           int(gather), int(reduce == "max"), int(vec4),
-                           values.device.index or 0,
-                           ctypes.c_void_p(torch.cuda.current_stream(
-                               values.device).cuda_stream))
-    _build.check(lib, err, "spmm_csr")
+    err = _build.entry("spmm_csr", "spmm_csr_f32")(
+        values.data_ptr(), indptr.data_ptr(),
+        src_sorted.data_ptr() if gather else None, rows.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), n_nodes, n_chunks, CHUNK, d,
+        int(gather), int(reduce == "max"), int(vec4),
+        *_build.stream_of(values))
+    if err:
+        _build.check(_build.load("spmm_csr"), err, "spmm_csr")
     spmm_csr_cuda.launches += 1
     return out
 

@@ -19,7 +19,6 @@ masking costs O(1) per score.  The result does not depend on
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -76,7 +75,6 @@ def fused_topk_score_cuda(ue: torch.Tensor, table: torch.Tensor,
                 torch.full((b, k), -1, dtype=torch.int32, device=dev))
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    lib = _build.load("topk_score")
     splits, tiles_per_split = split_plan(
         b, n_items, k,
         torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -90,15 +88,16 @@ def fused_topk_score_cuda(ue: torch.Tensor, table: torch.Tensor,
     seen_len = seen.shape[1]
     vec4 = d % 4 == 0 and ue.data_ptr() % 16 == 0 \
         and table.data_ptr() % 16 == 0
-    err = lib.fused_topk_score_f32(
+    err = _build.entry("topk_score", "fused_topk_score_f32")(
         ue.data_ptr(), table.data_ptr(),
         seen.data_ptr() if seen_len else None,
         seen_mask.data_ptr() if seen_len else None,
         out_s.data_ptr(), out_i.data_ptr(), part_s.data_ptr(),
         part_i.data_ptr(), bits.data_ptr(), b, d, table.shape[0], n_items,
-        seen_len, k, tiles_per_split, splits, int(vec4), dev.index or 0,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(lib, err, "fused_topk_score")
+        seen_len, k, tiles_per_split, splits, int(vec4),
+        *_build.stream_of(ue))
+    if err:
+        _build.check(_build.load("topk_score"), err, "fused_topk_score")
     fused_topk_score_cuda.launches += 1
     return out_s, out_i
 

@@ -18,11 +18,15 @@ The step runs eagerly; there is nothing to compile.  The reference's
 planner and memory tiers (ROADMAP A5), mesh execution (A10) and
 compression (A9) are not ported yet: a config that asks for any of them
 raises ``NotImplementedError`` naming its item, so nothing is ignored
-silently.  The state is ``{"params", "opt"}`` of nested dicts and lists
-of tensors, as the reference's pytrees.
+silently.  Until they land, the hooks the fault-tolerant loop and
+``api.Run`` call (``apply_plan``, ``on_relayout``, ``step_context``)
+keep the whole state on the pipeline's device, and ``shard`` is None.
+The state is ``{"params", "opt"}`` of nested dicts and lists of tensors,
+as the reference's pytrees.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -80,9 +84,9 @@ class PipelineConfig:
     eval_item_block: int = 1024
 
 
-def _unported(cfg: PipelineConfig) -> list[str]:
-    """The options this config sets that the port cannot run yet, each
-    with the ROADMAP item that brings it."""
+def check_ported(cfg: PipelineConfig) -> None:
+    """Raise ``NotImplementedError`` naming the options ``cfg`` sets that
+    the port cannot run yet, each with the ROADMAP item that brings it."""
     asks = {
         "microbatch=None (derived by the planner, A5)": cfg.microbatch is None,
         "hbm_budget (planner, A5)": cfg.hbm_budget is not None,
@@ -102,7 +106,11 @@ def _unported(cfg: PipelineConfig) -> list[str]:
                               or cfg.ring_compression != "none"
                               or cfg.embed_store != "fp32"),
     }
-    return [name for name, on in asks.items() if on]
+    asked = [name for name, on in asks.items() if on]
+    if asked:
+        raise NotImplementedError(
+            f"PipelineConfig options the port does not have yet "
+            f"(ROADMAP item in brackets): {asked}")
 
 
 class Pipeline:
@@ -110,11 +118,7 @@ class Pipeline:
 
     def __init__(self, cfg: PipelineConfig, train: InteractionData,
                  holdout: InteractionData | None = None, device="cuda"):
-        asked = _unported(cfg)
-        if asked:
-            raise NotImplementedError(
-                f"PipelineConfig options the port does not have yet "
-                f"(ROADMAP item in brackets): {asked}")
+        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec = get_model(cfg.arch)
@@ -133,6 +137,9 @@ class Pipeline:
                                  seed=cfg.seed)
         self._next_step = 0
         self._state0 = None
+        self.shard = None                  # one card: no mesh (A10)
+        self.n_offloaded = 0               # nothing demoted (A5)
+        self.eval_fn = None                # (state, step) -> metrics dict
         self._test_pos = None
         if holdout is not None:
             self.attach_holdout(holdout)
@@ -149,6 +156,28 @@ class Pipeline:
             self._state0 = {"params": params, "opt": self.opt.init(params)}
         return self._state0
 
+    def apply_plan(self, state):
+        """Place every state leaf where the plan puts it (used on fresh
+        state, after re-layout and on checkpoint restore).  Without the
+        planner (ROADMAP A5) every leaf goes to the pipeline's device and
+        nothing is offloaded."""
+        self.n_offloaded = 0
+        return tree_map(lambda t: t.to(self.device), state)
+
+    def step_context(self):
+        """The context one engine step runs under; the loop enters it
+        around every step it drives.  Nothing on one card (the reference's
+        sharding hints are ROADMAP A10)."""
+        return contextlib.nullcontext()
+
+    @property
+    def sched(self) -> LargeBatchSchedule:
+        return self.plan.sched
+
+    def out_dim(self) -> int:
+        """Final embedding width, per the model's own contract."""
+        return self.spec.out_dim(self.cfg.embed_dim, self.cfg.n_layers)
+
     def lr_for_epoch(self, epoch: int) -> float:
         """LR scaled to the batch actually run this epoch: the schedule's
         batch rounded up to whole microbatches."""
@@ -159,6 +188,9 @@ class Pipeline:
     def steps_per_epoch(self, epoch: int) -> int:
         spe_micro = self.loader.steps_per_epoch()
         return max(1, spe_micro // self.plan.microbatches_for_epoch(epoch))
+
+    def steps_for_epochs(self, n_epochs: int) -> int:
+        return sum(self.steps_per_epoch(e) for e in range(n_epochs))
 
     # ---------------------------------------------------------------- step
     def _batch(self, a: np.ndarray) -> torch.Tensor:
@@ -266,6 +298,12 @@ class Pipeline:
         self._next_step = step + 1
         return {"params": params, "opt": opt}, loss
 
+    def on_relayout(self, state):
+        """The loop's straggler escalation: re-plan and re-place the state.
+        The planner is ROADMAP A5; until then the placement is unchanged
+        and the state is re-placed as ``apply_plan`` places it."""
+        return self.apply_plan(state)
+
     # ---------------------------------------------------------------- eval
     def embeddings(self, state):
         """Final (user, item) embeddings for evaluation."""
@@ -274,10 +312,17 @@ class Pipeline:
                                      self.cfg.n_layers)
 
     def attach_holdout(self, holdout: InteractionData) -> None:
-        """Enable ``evaluate``: held-out items grouped by user; train items
-        are masked through the CSR structure."""
+        """Enable ``evaluate`` and periodic held-out evaluation: held-out
+        items grouped by user (train items are masked through the CSR
+        structure), and ``eval_fn``, which the fault-tolerant loop calls
+        every ``LoopConfig.eval_every`` steps."""
         self._test_pos = group_by_user(holdout.user, holdout.item,
                                        self.g.n_users)
+
+        def eval_fn(state, step):
+            return self.evaluate(state)
+
+        self.eval_fn = eval_fn
 
     def eval_user_batch(self) -> int:
         """User batch of one eval sweep: configured, else the port's

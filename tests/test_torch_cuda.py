@@ -52,6 +52,25 @@ def test_embedding_bag_kernel_matches_plain(dev, combiner):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("l", [1, 8])
+def test_embedding_bag_kernel_int64_ids_no_mask_bitwise(dev, combiner, l):
+    """The fast path on the card: int64 ids and no mask, bitwise against
+    the plain version and against int32 ids with an all-true mask; one
+    launch per call."""
+    rng = np.random.default_rng(l)
+    table = torch.from_numpy(rng.standard_normal((300, 128)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, 300, (256, l))).to(dev)
+    assert ids.dtype == torch.int64
+    before = launch_counts()["embedding_bag"]
+    got = ops.embedding_bag(table, ids, None, combiner)
+    assert launch_counts()["embedding_bag"] == before + 1
+    assert torch.equal(got, ref.embedding_bag_ref(table, ids, None, combiner))
+    full = torch.ones(ids.shape, dtype=torch.bool, device=dev)
+    assert torch.equal(got, ops.embedding_bag(table, ids.int(), full,
+                                              combiner))
+
+
 def test_fused_topk_kernel_bitwise_on_integer_ties(dev):
     rng = np.random.default_rng(2)
     ue = rng.integers(-2, 3, (40, 128)).astype(np.float32)

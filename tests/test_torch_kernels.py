@@ -115,6 +115,39 @@ def test_embedding_bag_ref_matches_reference(combiner, v, b, l, d):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("b,l", [(7, 1), (5, 4), (3, 0)])
+def test_embedding_bag_plain_without_mask_equals_all_true_mask(combiner, b, l):
+    """The port's fast path: ``mask=None`` with int64 ids gives the same
+    bits as an all-true mask with int32 ids, and matches the reference's
+    ``embedding_bag_ref`` with an all-true mask."""
+    rng = np.random.default_rng(b * 10 + l)
+    table = rng.standard_normal((23, 12)).astype(np.float32)
+    ids = rng.integers(0, 23, (b, l)).astype(np.int32)
+    full = np.ones((b, l), bool)
+    want = ops.embedding_bag(T(table), T(ids), T(full), combiner)
+    for i in (T(ids), T(ids).long()):
+        got = ops.embedding_bag(T(table), i, None, combiner)
+        assert got.dtype == torch.float32 and got.shape == (b, 12)
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+    jwant = jref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(ids),
+                                   jnp.asarray(full), combiner)
+    np.testing.assert_allclose(want.numpy(), np.asarray(jwant), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_gather_rows_takes_the_callers_ids_without_a_mask():
+    """``eval/topk.py::_gather_rows`` gives table rows for int32 and int64
+    ids alike (the user batch and the item block of the sweep)."""
+    from repro_torch.eval.topk import _gather_rows
+    table = T(np.random.default_rng(3).standard_normal((9, 5))
+              .astype(np.float32))
+    for dtype in (torch.int32, torch.int64):
+        ids = torch.tensor([4, 0, 8, 4], dtype=dtype)
+        got = _gather_rows(table, ids, None)
+        assert got.numpy().tobytes() == table[ids.long()].numpy().tobytes()
+
+
 # ------------------------------------------------- fused serving kernel
 def _fused_case(case):
     rng = np.random.default_rng(abs(hash(case)) % 2**31)
@@ -238,6 +271,13 @@ def test_wrappers_refuse_cpu_tensors_and_bad_k():
     with pytest.raises(ValueError, match="CUDA"):
         embedding_bag_cuda(torch.zeros(2, 4), torch.zeros((1, 1), dtype=torch.int32),
                            torch.ones((1, 1), dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_cuda(torch.zeros(2, 4),
+                           torch.zeros((1, 1), dtype=torch.int64), None)
+    with pytest.raises(ValueError, match="max"):
+        embedding_bag_cuda(torch.zeros(2, 4),
+                           torch.zeros((1, 1), dtype=torch.int32), None,
+                           "max")
     topk_args = (torch.zeros(1, 4), torch.zeros(3, 4),
                  torch.zeros((1, 0), dtype=torch.int32),
                  torch.zeros((1, 0), dtype=torch.bool))

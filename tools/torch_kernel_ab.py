@@ -1,14 +1,31 @@
 #!/usr/bin/env python3
-"""A/B of the port's ``sddmm``, which walks the edges grouped by user,
-against the edge-order kernel of a parent checkout, on one card, in one
-process.
+"""A/B of one of the port's kernels against a parent checkout, on one card,
+in one process.
 
-    python3 tools/torch_kernel_ab.py --parent DIR [--variants 128-4-1,...]
+    python3 tools/torch_kernel_ab.py --parent DIR [--kernel sddmm]
+        [--variants 128-4-1,...]
+    python3 tools/torch_kernel_ab.py --parent DIR --kernel embedding_bag
+        [--turns PCCP]
 
-DIR holds an unpacked parent commit (``git archive``) whose ``sddmm_f32``
-takes the edge-order C interface (op, x, y, src, dst, mask, coeff, out,
-E, D, vec4, device, stream).  The graph has the smoke's counts (349,184
-users, 53,248 items, 15,084,083 edges, D = 128) and is drawn on the card
+DIR holds an unpacked parent commit (``git archive``).
+
+``--kernel embedding_bag``: the parent's wrapper, library and
+``eval/topk.py::_gather_rows`` run as the parent's own source (loaded from
+DIR under other module names), beside the change's.  Bit equality of the
+change (int32 and int64 ids, with a mask and without) with the parent and
+the plain version, for sum and mean at L = 1 and L = 8; then, in the
+order of ``--turns`` (P parent, C change), at the serving shape (256
+bags of one of 349,184 rows, D = 128): host µs per wrapper call and per
+``_gather_rows`` with int32 and int64 ids (10,000 calls on a host clock),
+device µs (100 calls in a CUDA graph), µs between CUDA events, and each
+piece of the wrapper's host path (the checks, the allocation, the stream
+query, the C call with its launch), 10,000 calls each.
+
+``--kernel sddmm`` (the default) needs a parent whose ``sddmm_f32`` takes
+the edge-order C interface (op, x, y, src, dst, mask, coeff, out, E, D,
+vec4, device, stream), the kernel before it walked user groups.  The
+graph has the smoke's counts (349,184 users, 53,248 items, 15,084,083
+edges, D = 128) and is drawn on the card
 as ``synth.generate_bipartite`` draws it: users and items Zipf(1.05),
 duplicate pairs dropped and drawn again until there are enough, both id
 spaces permuted; its
@@ -130,10 +147,21 @@ def events_ms(torch, fn, reps: int = 10) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=pathlib.Path)
+    ap.add_argument("--kernel", choices=("sddmm", "embedding_bag"),
+                    default="sddmm")
     ap.add_argument("--variants", default="",
-                    help="comma-separated C-U-B: chunk, unroll, min "
+                    help="sddmm: comma-separated C-U-B: chunk, unroll, min "
                          "blocks per SM")
+    ap.add_argument("--turns", default="PCCP",
+                    help="embedding_bag: the order of the timed turns, P "
+                         "for the parent and C for the change")
     args = ap.parse_args()
+    if args.kernel == "embedding_bag":
+        return main_embedding_bag(args)
+    return main_sddmm(args)
+
+
+def main_sddmm(args) -> int:
     variants = [tuple(int(v) for v in s.split("-"))
                 for s in args.variants.split(",") if s]
     import torch
@@ -253,6 +281,197 @@ def main() -> int:
                                   "change_ms": min(v["change_ms"])}
                              for op, v in rows.items()},
                       "groups_build_ms": build_ms, "card": smi}), flush=True)
+    return 0
+
+
+# ------------------------------------------------------------ embedding_bag
+EB_USERS, EB_BATCH, EB_BAG = N_USERS, 256, 8
+EB_CALLS = 10_000
+
+
+def load_parent_gather(parent: pathlib.Path):
+    """The parent's ``embedding_bag`` wrapper, its library and its
+    ``eval/topk.py::_gather_rows``, each run as the parent's own source:
+    the modules are loaded from the parent's files under other names and
+    pointed at one another (the parent's ``_build`` builds the parent's
+    ``embedding_bag.cu`` into the parent's ``build/``)."""
+    import importlib.util
+
+    def load(name, rel):
+        spec = importlib.util.spec_from_file_location(
+            name, parent / "src" / "repro_torch" / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    bld = load("parent_build", "kernels/_build.py")
+    eb = load("parent_embedding_bag", "kernels/embedding_bag.py")
+    eb._build = bld
+    ops = load("parent_ops", "kernels/ops.py")
+    ops.embedding_bag_cuda = eb.embedding_bag_cuda
+    topk = load("parent_topk", "eval/topk.py")
+    topk.kops = ops
+    bld.build_all(("embedding_bag",))
+    return {"build": bld, "wrapper": eb.embedding_bag_cuda,
+            "gather_rows": topk._gather_rows}
+
+
+def parent_pieces(torch, bld, table, ids, mask) -> dict:
+    """Host µs per piece of the parent's wrapper, as its source runs
+    them, each over ``EB_CALLS`` calls."""
+    from chip_smoke import host_us
+    b, bag_len = ids.shape
+    d = table.shape[1]
+
+    def checks():
+        combiner = "sum"
+        if combiner not in ("sum", "mean"):
+            raise ValueError(combiner)
+        if not table.is_cuda:
+            raise ValueError("table")
+        if table.dtype != torch.float32 or table.dim() != 2 \
+                or not table.is_contiguous():
+            raise ValueError("table")
+        if ids.dtype != torch.int32 or ids.dim() != 2 \
+                or not ids.is_contiguous():
+            raise ValueError("ids")
+        if mask.dtype != torch.bool or mask.shape != ids.shape \
+                or not mask.is_contiguous():
+            raise ValueError("mask")
+        if ids.device != table.device or mask.device != table.device:
+            raise ValueError("device")
+
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+
+    def call():
+        vec4 = d % 4 == 0 and table.data_ptr() % 16 == 0 \
+            and out.data_ptr() % 16 == 0
+        lib = bld.load("embedding_bag")
+        err = lib.embedding_bag_f32(
+            table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, bag_len, d, 0, int(vec4),
+            table.device.index or 0,
+            ctypes.c_void_p(torch.cuda.current_stream(
+                table.device).cuda_stream))
+        bld.check(lib, err, "embedding_bag")
+
+    return {
+        "checks": host_us(torch, checks, EB_CALLS),
+        "torch_empty": host_us(torch, lambda: torch.empty(
+            (b, d), dtype=torch.float32, device=table.device), EB_CALLS),
+        "stream_query": host_us(torch, lambda: ctypes.c_void_p(
+            torch.cuda.current_stream(table.device).cuda_stream), EB_CALLS),
+        "ctypes_call_with_launch": host_us(torch, call, EB_CALLS),
+    }
+
+
+def main_embedding_bag(args) -> int:
+    """``embedding_bag`` of the parent against the change, in one process:
+    bit equality for sum and mean at L = 1 and L = 8 (masked and, for the
+    change, unmasked with int32 and int64 ids), then per turn the host µs
+    per wrapper call and per ``_gather_rows`` (``EB_CALLS`` calls on a host
+    clock), the device µs (100 calls in a CUDA graph) and the µs between
+    CUDA events, and the pieces of each wrapper's host path."""
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import device_ms, host_us
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    turns = args.turns.upper()
+    parent = load_parent_gather(args.parent.resolve())
+    with_change = "C" in turns
+    if with_change:
+        from chip_smoke import itemise_embedding_bag
+        from repro_torch.eval.topk import _gather_rows
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+        from repro_torch.kernels.ref import embedding_bag_ref
+        _build.build_all(("embedding_bag",))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    table = torch.randn((EB_USERS, D), device=dev, generator=gen)
+
+    same = {}
+    if with_change:
+        for bag_len in (1, EB_BAG):
+            ids = torch.randint(0, EB_USERS, (EB_BATCH, bag_len), device=dev,
+                                generator=gen, dtype=torch.int32)
+            mask = torch.rand((EB_BATCH, bag_len), device=dev,
+                              generator=gen) > 0.3
+            mask[0] = False
+            full = torch.ones_like(mask)
+            for comb in ("sum", "mean"):
+                want = parent["wrapper"](table, ids, mask, comb)
+                want_full = parent["wrapper"](table, ids, full, comb)
+                got = {
+                    "masked_i32": embedding_bag_cuda(table, ids, mask, comb),
+                    "masked_i64": embedding_bag_cuda(table, ids.long(), mask,
+                                                     comb),
+                    "no_mask_i32": embedding_bag_cuda(table, ids, None, comb),
+                    "no_mask_i64": embedding_bag_cuda(table, ids.long(), None,
+                                                      comb)}
+                plain = {"masked": embedding_bag_ref(table, ids, mask, comb),
+                         "no_mask": embedding_bag_ref(table, ids.long(), None,
+                                                      comb)}
+                row = {}
+                for name, t in got.items():
+                    ref = want if name.startswith("masked") else want_full
+                    row[f"{name}_eq_parent"] = torch.equal(t, ref)
+                    row[f"{name}_eq_plain"] = torch.equal(
+                        t, plain[name.rsplit("_", 1)[0]])
+                same[f"{comb} L={bag_len}"] = row
+        print(json.dumps({"bitwise": same}), flush=True)
+        if not all(all(r.values()) for r in same.values()):
+            raise RuntimeError("embedding_bag: not bitwise equal")
+
+    sel = torch.randint(0, EB_USERS, (EB_BATCH,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    sel64 = sel.long()
+    ids1 = sel[:, None].contiguous()
+    mask1 = torch.ones_like(ids1, dtype=torch.bool)
+    sides = {"P": {"wrapper": lambda: parent["wrapper"](table, ids1, mask1),
+                   "gather_i32": lambda: parent["gather_rows"](table, sel,
+                                                               "cuda"),
+                   "gather_i64": lambda: parent["gather_rows"](table, sel64,
+                                                               "cuda")}}
+    if with_change:
+        sides["C"] = {"wrapper": lambda: embedding_bag_cuda(table, ids1, None),
+                      "wrapper_masked": lambda: embedding_bag_cuda(
+                          table, ids1, mask1),
+                      "gather_i32": lambda: _gather_rows(table, sel, "cuda"),
+                      "gather_i64": lambda: _gather_rows(table, sel64,
+                                                         "cuda")}
+    rows = {"P": [], "C": []}
+    for who in turns:
+        rec = {}
+        for name, fn in sides[who].items():
+            rec[f"{name}_host_us"] = host_us(torch, fn, EB_CALLS)
+        rec["wrapper_device_us"] = device_ms(torch, sides[who]["wrapper"]) \
+            * 1e3
+        rec["wrapper_call_us"] = events_ms(torch, sides[who]["wrapper"],
+                                           reps=100) * 1e3
+        rec["gather_i32_call_us"] = events_ms(
+            torch, sides[who]["gather_i32"], reps=100) * 1e3
+        rec["pieces_host_us"] = parent_pieces(
+            torch, parent["build"], table, ids1, mask1) if who == "P" \
+            else itemise_embedding_bag(torch, table, ids1, EB_CALLS)
+        rows[who].append(rec)
+        print(json.dumps({"turn": "parent" if who == "P" else "change",
+                          "work": f"B={EB_BATCH} L=1 D={D}", **rec}),
+              flush=True)
+    print(smi, flush=True)
+    summary = {who: {k: min(r[k] for r in recs) for k in recs[0]
+                     if k != "pieces_host_us"}
+               for who, recs in rows.items() if recs}
+    print(json.dumps({"ab": "embedding_bag", "best_of_turns": summary,
+                      "bitwise": bool(same) and all(
+                          all(r.values()) for r in same.values()),
+                      "card": smi}), flush=True)
     return 0
 
 
