@@ -41,7 +41,26 @@ Phases (any failure exits non-zero before the last line is printed):
      accumulated microbatches each, fused Hadamard route; the first
      microbatch's loss and gradients held against the plain route, and
      the training kernels' launch counts read;
-  7. hold ``sddmm`` against its plain version at adversarial shapes
+  7. drive LightGCN FULL through the Experiment API (``api``):
+     ``Experiment.from_preset("lightgcn-full")`` -> ``Run.fit`` for 3
+     steps, ``Run.evaluate`` over every held-out user at the derived eval
+     batch, ``Run.recommend`` against the plain route, a checkpointed run
+     resumed bit for bit, and the CPU-sized presets on the card;
+  8. the training half of the planner and tiers (``tiered_train``): both
+     ``*-full`` presets built as they are (the derived microbatch 150,528
+     and eval batch 4,096 required), then LightGCN FULL through
+     ``Run.fit`` for 5 steps on ``h100-hbm-host`` in the arms
+     (TIERED_ARMS): all on the device (A); both tables and their Adam
+     moments demoted to pinned host memory (B, required bitwise equal to
+     A, and lower in device memory between steps by at least 90 % of the
+     demoted bytes); the same with the int8 store (C) and with int8 or
+     top-k gradient compression (D), each held to the reference's
+     tolerance on the smoke presets' schedule (lr 1e-3, against an A of
+     that schedule) and reported at the preset's own lr; per arm the step,
+     fetch and commit ms, link bytes, memory between steps, peak memory
+     and the plan's est_penalty; then ``Run.evaluate`` on arm B, with
+     ``_padded_seen``'s and ``ranking_metrics``' shares timed;
+  9. hold ``sddmm`` against its plain version at adversarial shapes
      (with and without edge groups: groups longer than several chunks,
      groups keyed on dst, groups of another call refused) and past 2^31
      output elements, then drive the seed COO path (``coo``) on the same
@@ -54,13 +73,14 @@ Phases (any failure exits non-zero before the last line is printed):
      breakdown of one O3 layer; the ``sddmm`` kernel line ('mul' and
      'dot' walking the user groups, the edge-order walk beside them, and
      ``torch.sparse.sampled_addmm`` as the 'dot' yardstick);
-  8. the subgraph-training baseline beside the full-graph step at depth
+  10. the subgraph-training baseline beside the full-graph step at depth
      1-3 (``subgraph``, the paper's headline comparison);
-  9. print ``{"kernels": [...]}`` and, last, the device line.
+  11. print ``{"kernels": [...]}`` and, last, the device line.
 Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -108,6 +128,52 @@ GRAD_RTOL = 1e-4           # per gradient leaf, relative in the norm
 API_STEPS, N_RECOMMEND = 3, 256
 API_PRESETS = ("quickstart", "lightgcn-smoke")
 API_RTOL = 1e-4
+# the tiered_train phase: LightGCN FULL (the lightgcn-full preset as it is,
+# so the planner derives the microbatch) for TIERED_STEPS steps through
+# Run.fit in each arm on h100-hbm-host; the reference's derive_microbatch
+# and derive_eval_batch give FULL_MICROBATCH (the target batch) and
+# FULL_EVAL_BATCH (the cap) for both *-full presets
+# steps 0 and 1 of a demoted arm pin fresh host memory for their commits
+# (the caching host allocator has none to hand out yet, as the initial
+# and the previous state still hold theirs); from step TIERED_STEADY on
+# it reuses freed blocks, so the arms compare medians of those steps
+TIERED_STEPS, TIERED_STEADY, TIERED_TOPOLOGY = 5, 2, "h100-hbm-host"
+FULL_MICROBATCH, FULL_EVAL_BATCH = 150_528, 4_096
+# The reference states its compression tolerances on the smoke presets'
+# schedule: no warm-up and the base batch at the target, so lr 1e-3 a
+# step.  The FULL preset's warm-up scales lr linearly to 0.147 at 150,528
+# samples, where one Adam step moves every touched weight by ~0.15, the
+# loss swings by ~0.1 a step and a compressed step (int8 rounding, 1 % of
+# the gradient) lands elsewhere; so the arms held to those tolerances run
+# on the smoke schedule, against an A of that schedule, and are only
+# reported at the preset's own lr.
+SMOKE_SCHEDULE = {"plan.base_batch": TARGET_BATCH, "plan.warmup_epochs": 0}
+DEMOTED = {"memory.pins": {"_embed": "host"}}
+INT8_STORE = {**DEMOTED, "compression.embed_store": "int8"}
+INT8_GRADS = {"compression.grads": "int8"}
+TOPK_GRADS = {"compression.grads": "topk", "compression.frac": 0.01}
+TIERED_ARMS = {
+    "A_device": {},
+    # both tables and their Adam m and v (6 leaves) in pinned host memory
+    "B_demoted_fp32": DEMOTED,
+    "C_demoted_int8_preset_lr": INT8_STORE,
+    "A_lr_1e-3": SMOKE_SCHEDULE,
+    "C_demoted_int8": {**SMOKE_SCHEDULE, **INT8_STORE},
+    "D_grads_int8": {**SMOKE_SCHEDULE, **INT8_GRADS},
+    "D_grads_topk": {**SMOKE_SCHEDULE, **TOPK_GRADS},
+    "D_grads_int8_preset_lr": INT8_GRADS,
+    "D_grads_topk_preset_lr": TOPK_GRADS,
+}
+# each arm's comparator, and the (rtol, atol) its losses are held to there:
+# the reference's own (tests/test_compression.py:311-321, :339); None is
+# reported only; B must be bitwise equal to A
+TIERED_VS = {"B_demoted_fp32": ("A_device", "bitwise"),
+             "C_demoted_int8_preset_lr": ("A_device", None),
+             "C_demoted_int8": ("A_lr_1e-3", (2e-2, 5e-3)),
+             "D_grads_int8": ("A_lr_1e-3", (1e-3, 1e-4)),
+             "D_grads_topk": ("A_lr_1e-3", (5e-3, 2e-3)),
+             "D_grads_int8_preset_lr": ("A_device", None),
+             "D_grads_topk_preset_lr": ("A_device", None)}
 # seed COO path: O0's backward keeps ~5 [E, D] tensors per layer, so O0 is
 # timed against O3 on the first 2^22 train edges; the cells' step uses the
 # reference cells' optimizer (src/repro/launch/cells.py:36: adam(1e-4))
@@ -166,6 +232,7 @@ ANN_KERNELS = ("embedding_bag", "fused_topk_score", "ann_block_scores")
 TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
 COO_KERNELS = ("sddmm",)
 API_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
+TIERED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 # spmm_csr's row-split cases (check_spmm); gathered rows come from a table
 # of SPLIT_SRC_ROWS rows
 SPLIT_CASES = ("long_row", "boundaries", "no_edges", "long_indptr")
@@ -1574,10 +1641,11 @@ def _timed_saves(saves):
 
 class StepTimer:
     """A ``Pipeline.step_context`` that times each step the loop drives
-    (host clock between two synchronisations)."""
+    (host clock between two synchronisations) and reads the device memory
+    allocated as each step begins."""
 
     def __init__(self, torch, inner):
-        self.torch, self.inner, self.ms = torch, inner, []
+        self.torch, self.inner, self.ms, self.mem = torch, inner, [], []
 
     def __call__(self):
         return self
@@ -1586,6 +1654,7 @@ class StepTimer:
         self.ctx = self.inner()
         self.ctx.__enter__()
         self.torch.cuda.synchronize()
+        self.mem.append(self.torch.cuda.memory_allocated())
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
@@ -1634,7 +1703,7 @@ def api_phase(torch, dev, train, test):
     -> ``build`` -> ``Run.fit``/``evaluate``/``recommend``) on the smoke's
     graph, a checkpointed run resumed bit for bit, then the CPU-sized
     presets against the plain route.  Returns the launches of the main
-    run (fit, evaluate, recommend)."""
+    run (fit, evaluate, recommend) and the evaluation's seconds."""
     import shutil
     import tempfile
 
@@ -1669,6 +1738,7 @@ def api_phase(torch, dev, train, test):
     t0 = time.perf_counter()
     metrics = run.evaluate()
     eval_s = time.perf_counter() - t0
+    eval_batch = run.pipeline.eval_user_batch()
     users = np.nonzero(np.bincount(test.user, minlength=N_USERS))[0]
     users = users[:N_RECOMMEND]
     t0 = time.perf_counter()
@@ -1733,7 +1803,8 @@ def api_phase(torch, dev, train, test):
           "describe": describe, "build_s": build_s,
           "microbatches_per_step": micro, "lr": lr, "fit_s": fit_s,
           "ms_per_step": timer.ms, "losses": losses,
-          "eval_s": eval_s, "metrics": metrics,
+          "eval_s": eval_s, "eval_user_batch": eval_batch,
+          "metrics": metrics,
           "eval_users": int(len(np.unique(test.user))),
           "recommend_users": int(len(users)), "recommend_s": recommend_s,
           "recommend_near_tie_id_swaps_vs_plain": excused,
@@ -1741,6 +1812,273 @@ def api_phase(torch, dev, train, test):
                      "resumed_loss": rep3.losses[0],
                      "bitwise_equal_to_uninterrupted": True},
           "presets": presets, "launches": launches})
+    return launches, eval_s
+
+
+# ------------------------------------------------------------ tiered_train
+class LinkTimer:
+    """Times an executor's ``fetch`` and ``commit`` with CUDA events: the
+    device time of the copies each issues (and, for ``commit``, of the
+    int8 store's quantisation), per step."""
+
+    def __init__(self, torch, executor):
+        self.torch, self.events = torch, {"fetch": [], "commit": []}
+        for name in self.events:
+            setattr(executor, name, self._timed(name,
+                                                getattr(executor, name)))
+
+    def _timed(self, name, inner):
+        def timed(state):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(state)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return timed
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        return {name: [a.elapsed_time(b) for a, b in pairs]
+                for name, pairs in self.events.items()}
+
+
+def _host_leaves(torch, state) -> dict:
+    """{path: host copy} of every leaf (the arm A reference)."""
+    from repro_torch.optim.optimizers import tree_paths
+    return {p: t.detach().cpu() for p, t in tree_paths(state)}
+
+
+def _free(torch) -> None:
+    """Release a dropped run's device memory: a run's pipeline and its
+    ``eval_fn`` closure form a reference cycle, so only a collection
+    frees it before the next arm's numbers are read."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tiered_arm(torch, dev, exp, name, train, test):
+    """One arm of ``tiered_train``: the arm's spec through ``Run.fit()``,
+    timed per loop step, its executor's fetch/commit timed per step and
+    its link bytes, memory between steps and peak memory read.  Returns
+    (run, record)."""
+    run = exp.override({"memory.topology": TIERED_TOPOLOGY,
+                        "loop.steps": TIERED_STEPS, **TIERED_ARMS[name]}) \
+        .build(train=train, holdout=test, device=dev)
+    pipe = run.pipeline
+    timer = StepTimer(torch, pipe.step_context)
+    pipe.step_context = timer
+    links = LinkTimer(torch, pipe.executor)
+    pipe.executor.link_bytes = {"h2d": 0, "d2h": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = run.fit()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del pipe.step_context
+    losses = report.losses
+    require(report.steps_run == TIERED_STEPS and np.isfinite(losses).all(),
+            f"tiered_train {name}: {report.steps_run} steps, {losses}")
+    require(pipe.plan.microbatch == FULL_MICROBATCH,
+            f"tiered_train {name}: microbatch {pipe.plan.microbatch}")
+    ex = pipe.executor
+    int8 = {n: ex.store_nbytes(n) for n in ex._int8}
+    link_ms = links.ms()
+    rec = {"arm": name, "overrides": TIERED_ARMS[name],
+           "n_offloaded": pipe.n_offloaded,
+           "demoted": sorted(ex._host_names),
+           "demoted_bytes": _demoted_bytes(pipe, run.state),
+           "est_penalty_ms": pipe.plan.plan.est_step_penalty_s * 1e3,
+           "ms_per_step": timer.ms, "losses": losses,
+           "fetch_ms": link_ms["fetch"], "commit_ms": link_ms["commit"],
+           "link_bytes_per_step": {k: v / TIERED_STEPS
+                                   for k, v in ex.link_bytes.items()},
+           "allocated_between_steps": timer.mem,
+           "peak_allocated": peak, "int8_store_bytes": int8,
+           "describe": run.describe().splitlines()[1],
+           "executor": ex.describe()}
+    if pipe.compressor is not None:
+        rec["compressor"] = pipe.compressor.describe()
+        rec["wire_bytes_per_step"] = pipe.compressor.wire_bytes_per_step(
+            run.state["params"])
+    return run, rec
+
+
+def _demoted_bytes(pipe, state) -> int:
+    """Bytes of the state's leaves in the executor's host store."""
+    from repro_torch.optim.optimizers import tree_paths
+    return sum(t.numel() * t.element_size()
+               for prefix in ("params", "opt")
+               for path, t in tree_paths(state[prefix])
+               if prefix + path in pipe.executor._host_names)
+
+
+def padded_seen_ms(torch, dev, g, test, batch) -> dict:
+    """``eval/topk.py::_padded_seen`` alone over the held-out users in
+    batches of ``batch``, CUDA events: its time and the bytes it builds."""
+    from repro_torch.eval.topk import _padded_seen
+    indptr, items = g.seen_csr()
+    indptr = torch.from_numpy(indptr).to(dev)
+    items = torch.from_numpy(items).to(dev)
+    users = torch.from_numpy(np.unique(test.user).astype(np.int32)).to(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    built = widest = 0
+    start.record()
+    for lo in range(0, len(users), batch):
+        sel = users[lo:lo + batch]
+        deg = indptr[sel.long() + 1] - indptr[sel.long()]
+        seen, mask = _padded_seen(sel, indptr, items, int(deg.max()))
+        built += seen.numel() * 5
+        widest = max(widest, seen.shape[1])
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end), "bytes": built,
+            "widest": widest, "batches": -(-len(users) // batch)}
+
+
+def tiered_train(torch, dev, train, test, api_eval_s):
+    """The training half of the planner and tiers at LightGCN-FULL width:
+    both ``*-full`` presets built as they are (the derived microbatch and
+    eval batch), then LightGCN FULL through ``Run.fit()`` in the arms of
+    TIERED_ARMS on ``h100-hbm-host`` — B bitwise equal to A, C and D
+    within the reference's tolerances of A — and ``Run.evaluate()`` on
+    arm B at the derived eval batch.  One graph serves every build: the
+    host-side CSR sort (~7.5 s) is set-up, not what the arms compare.
+    Returns the phase's launches."""
+    from repro_torch import kernels
+    from repro_torch.api import Experiment
+    from repro_torch.eval import metrics as metrics_mod
+    from repro_torch.pipeline import engine, sparse
+    t_phase = time.perf_counter()
+    _free(torch)
+    graph = sparse.BipartiteCSR(train.user, train.item, train.n_users,
+                                train.n_items, device=dev)
+    engine.BipartiteCSR = lambda *a, **kw: graph
+    try:
+        presets = {}
+        for name in ("lightgcn-full", "ngcf-full"):
+            run = Experiment.from_preset(name).build(train=train,
+                                                     holdout=test,
+                                                     device=dev)
+            presets[name] = {"describe": run.describe(),
+                             "microbatch": run.pipeline.plan.microbatch,
+                             "eval_user_batch":
+                                 run.pipeline.eval_user_batch()}
+            require(presets[name]["microbatch"] == FULL_MICROBATCH
+                    and presets[name]["eval_user_batch"] == FULL_EVAL_BATCH,
+                    f"{name}: derived {presets[name]}")
+            del run
+            _free(torch)
+        exp = Experiment.from_preset("lightgcn-full")
+        kernels.reset_launch_counts()
+        arms, finals = {}, {}
+        for name in TIERED_ARMS:
+            run, rec = tiered_arm(torch, dev, exp, name, train, test)
+            arms[name] = rec
+            if name.startswith("A_"):
+                finals[name] = _host_leaves(torch, run.state)
+                del run
+                _free(torch)
+                continue
+            vs, tol = TIERED_VS[name]
+            want = arms[vs]["losses"]
+            err = np.abs(np.array(rec["losses"]) - np.array(want))
+            rec["vs"], rec["loss_max_abs_err"] = vs, float(err.max())
+            if tol == "bitwise":
+                require(rec["n_offloaded"] == 6,
+                        f"arm B demoted {rec['demoted']}")
+                require(rec["losses"] == want,
+                        f"arm B losses {rec['losses']} != A's {want}")
+                state = _host_leaves(torch, run.state)
+                require(sorted(state) == sorted(finals[vs]) and all(
+                    torch.equal(state[p], finals[vs][p]) for p in state),
+                    "arm B's final state differs from arm A's")
+                rec["bitwise_equal_to_A"] = True
+                del state
+                # the host's share of the sweep: ranking_metrics, timed
+                ranking = metrics_mod.ranking_metrics
+                host_s = []
+
+                def timed_ranking(*a, **kw):
+                    t = time.perf_counter()
+                    out = ranking(*a, **kw)
+                    host_s.append(time.perf_counter() - t)
+                    return out
+
+                metrics_mod.ranking_metrics = timed_ranking
+                try:
+                    t0 = time.perf_counter()
+                    metrics = run.evaluate()
+                    rec["eval_s"] = time.perf_counter() - t0
+                finally:
+                    metrics_mod.ranking_metrics = ranking
+                rec["eval_ranking_metrics_s"] = sum(host_s)
+                rec["eval_user_batch"] = run.pipeline.eval_user_batch()
+                rec["metrics"] = metrics
+                require(rec["eval_user_batch"] == FULL_EVAL_BATCH
+                        and all(0.0 <= v <= 1.0 for v in metrics.values()),
+                        f"arm B evaluate: {rec['eval_user_batch']}, "
+                        f"{metrics}")
+                rec["padded_seen"] = {
+                    b: padded_seen_ms(torch, dev, run.pipeline.g, test, b)
+                    for b in (USER_BATCH, FULL_EVAL_BATCH)}
+            elif tol is not None:
+                rtol, atol = tol
+                require((err <= atol + rtol * np.abs(want)).all(),
+                        f"arm {name}: losses {rec['losses']} off {vs}'s "
+                        f"{want} (rtol {rtol}, atol {atol})")
+                rec["tolerance"] = {"rtol": rtol, "atol": atol}
+            if name.startswith("C_"):
+                dense = sum(run.state["params"][n.split("'")[1]].numel() * 4
+                            for n in rec["int8_store_bytes"])
+                store = sum(rec["int8_store_bytes"].values())
+                require(len(rec["int8_store_bytes"]) == 2
+                        and store < dense / 2,
+                        f"arm C int8 store {store} of {dense} fp32 bytes")
+                rec["fp32_table_bytes"] = dense
+            del run
+            _free(torch)
+        del finals
+        launches = kernels.launch_counts()
+    finally:
+        engine.BipartiteCSR = sparse.BipartiteCSR
+    for name in TIERED_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the tiered_train path")
+
+    def med(xs):
+        return float(np.median(xs[TIERED_STEADY:]))
+
+    between = {n: r["allocated_between_steps"][-1] for n, r in arms.items()}
+    b = arms["B_demoted_fp32"]
+    require(between["A_device"] - between["B_demoted_fp32"]
+            >= 0.9 * b["demoted_bytes"],
+            f"arm B holds {between['B_demoted_fp32']} bytes between steps "
+            f"against A's {between['A_device']}; demoted "
+            f"{b['demoted_bytes']}")
+    emit({"phase": "tiered_train", "preset": "lightgcn-full",
+          "topology": TIERED_TOPOLOGY, "steps": TIERED_STEPS,
+          "steady_from_step": TIERED_STEADY,
+          "seconds": time.perf_counter() - t_phase,
+          "microbatch": FULL_MICROBATCH, "eval_user_batch": FULL_EVAL_BATCH,
+          "presets": presets,
+          "graph_bytes_reference_count": graph.graph_nbytes(),
+          "graph_bytes_held": graph.port_csr_nbytes(),
+          "arms": arms,
+          "step_ms_median_steady": {n: med(r["ms_per_step"])
+                                    for n, r in arms.items()},
+          "fetch_commit_ms_median_steady": {
+              n: [med(r["fetch_ms"]), med(r["commit_ms"])]
+              for n, r in arms.items()},
+          "minus_comparator_ms": {
+              n: med(r["ms_per_step"]) - med(arms[r["vs"]]["ms_per_step"])
+              for n, r in arms.items() if "vs" in r},
+          "allocated_between_steps_minus_B": {
+              n: v - between["B_demoted_fp32"] for n, v in between.items()},
+          "eval_s": {"tiered_train_B": b["eval_s"], "api": api_eval_s},
+          "launches": {k: launches[k] for k in TIERED_KERNELS}})
     return launches
 
 
@@ -2333,7 +2671,9 @@ def main() -> int:
     times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
     del layer0
     torch.cuda.empty_cache()
-    api_launches = api_phase(torch, dev, train, test)
+    api_launches, api_eval_s = api_phase(torch, dev, train, test)
+    torch.cuda.empty_cache()
+    tiered_launches = tiered_train(torch, dev, train, test, api_eval_s)
     torch.cuda.empty_cache()
     with torch.no_grad():
         errs["sddmm"] = check_sddmm(torch, dev, rng)
@@ -2348,7 +2688,9 @@ def main() -> int:
              "ann_serving": {k: ann_launches[k] for k in ANN_KERNELS},
              "training": {k: train_launches[k] for k in TRAINING_KERNELS},
              "coo": {k: coo_launches[k] for k in COO_KERNELS},
-             "api": {k: api_launches[k] for k in API_KERNELS}}
+             "api": {k: api_launches[k] for k in API_KERNELS},
+             "tiered_train": {k: tiered_launches[k]
+                              for k in TIERED_KERNELS}}
     emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -6,8 +6,7 @@ GNNRecSys family, so ``Experiment.from_preset("lightgcn-smoke")``
 resolves to the same shapes ``configs.get("lightgcn").SMOKE`` declares
 (the registry reads the config modules at import, it cannot drift).  The
 ``*-full`` presets leave ``plan.microbatch`` to the planner (None), which
-the port does not have yet (ROADMAP A5): building one raises unless the
-microbatch is overridden.  ``register_preset`` adds
+derives it from the fast tier's headroom.  ``register_preset`` adds
 project-local presets; a preset is stored as a zero-arg factory so
 registration order never freezes a stale spec.
 """

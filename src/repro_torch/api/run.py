@@ -2,7 +2,7 @@
 ``repro/api/run.py``).
 
 One object that drives the port's stack from a spec: data loading
-(``api.data``), the engine (``pipeline``), the fault-tolerant loop
+(``api.data``), planner + engine (``pipeline``), the fault-tolerant loop
 (``runtime``), streaming evaluation and the serving facade (``eval``,
 ``serving``).  The spec stays the single source of truth; the Run adds
 position (current state + step) and the device it runs on.
@@ -79,7 +79,7 @@ class Run:
 
     def resume(self, ckpt_dir: str) -> "Run":
         """Position this run at the latest committed checkpoint: state
-        restored onto its planned placement, loader seeked so the next
+        restored onto its planned tiers, loader seeked so the next
         batch matches an uninterrupted run's (schedule-exact resume).  A
         checkpoint the reference's ``Run`` wrote restores too."""
         state, step = restore_checkpoint(ckpt_dir, self.pipeline.init_state())
@@ -140,12 +140,13 @@ class Run:
                                            exclude_seen=exclude_seen)
 
     def describe(self) -> str:
-        """The reference's first line; the lines of its
-        ``TrainPlan.describe()`` come with the planner (ROADMAP A5)."""
+        """The run's line, then its ``TrainPlan.describe()``."""
         d = self.train_data
-        return (f"Run[{self.spec.name}] arch={self.spec.model.arch} "
-                f"data={self.spec.data.source}:{self.spec.data.dataset} "
-                f"({d.n_users}U x {d.n_items}I, {d.n_edges} train edges)")
+        return "\n".join([
+            f"Run[{self.spec.name}] arch={self.spec.model.arch} "
+            f"data={self.spec.data.source}:{self.spec.data.dataset} "
+            f"({d.n_users}U x {d.n_items}I, {d.n_edges} train edges)",
+            self.pipeline.plan.describe()])
 
 
 def build(spec: ExperimentSpec, train: InteractionData | None = None,

@@ -92,8 +92,7 @@ class MeshCfg:
 
 @dataclasses.dataclass(frozen=True)
 class MemoryCfg:
-    """Memory-tier subsystem (``memory``; training placement is ROADMAP A5
-    in the port): which registered
+    """Memory-tier subsystem (``memory``): which registered
     ``TierTopology`` the run models, which placement policy assigns
     tensors to tiers, per-tier capacity overrides, and name->tier pins.
     The default reproduces the pre-redesign TPU planner bit for bit;
@@ -118,14 +117,14 @@ class MemoryCfg:
 
 @dataclasses.dataclass(frozen=True)
 class CompressionCfg:
-    """Byte compression on the slow links (``optim.compression``; ROADMAP
-    A9 in the port):
+    """Byte compression on the slow links (``optim.compression``):
     the gradient combine (``grads``: int8 stochastic psum or top-k
     all-gather, with per-participant error feedback carried in
     ``state["comp"]``), capacity-tier embedding-table storage
     (``embed_store='int8'``: ~1/4 bytes, fp32 dequant-on-gather, and
     the planner prices the quantized footprint), and the ring-SpMM
-    payload rotation (``ring='int8'``).  The default is the identity:
+    payload rotation (``ring='int8'``; sharded execution, ROADMAP A10 in
+    the port).  The default is the identity:
     no compressor is built and training stays bit-identical to the
     pre-compression pipeline."""
     grads: str = "none"              # 'none' | 'int8' | 'topk'

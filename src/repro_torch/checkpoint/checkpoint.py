@@ -15,8 +15,10 @@ order) and their paths written as ``jax.tree_util.keystr`` writes them,
 so a checkpoint of the same tree written by either package restores in
 the other: the reference's training state ``{"params", "opt"}`` with
 Adam's ``{"m", "v", "t"}`` is the port's.  Restored leaves land on the
-example leaf's device and dtype.  An async save copies every device leaf
-to the host in the caller's thread, then writes on a worker thread.
+example leaf's device and dtype; a leaf of another dtype kind (a float
+read into an int, an unsigned PRNG key into a signed one) is refused.
+An async save copies every device leaf to the host in the caller's
+thread, then writes on a worker thread.
 """
 from __future__ import annotations
 
@@ -29,27 +31,12 @@ from typing import Any
 import numpy as np
 import torch
 
-
-def _flatten(tree, path: str = "") -> list[tuple[str, Any]]:
-    """(path, leaf) pairs in JAX's order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(_flatten(tree[k], f"{path}[{k!r}]"))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out.extend(_flatten(v, f"{path}[{i}]"))
-        return out
-    return [(path, tree)]
+from repro_torch.optim.optimizers import tree_paths
 
 
 def _unflatten(example, leaves):
     """``example``'s structure with its leaves taken from the iterator
-    ``leaves`` in ``_flatten``'s order."""
+    ``leaves`` in ``tree_paths``' order."""
     if example is None:
         return None
     if isinstance(example, dict):
@@ -74,7 +61,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     async_: bool = False) -> threading.Thread | None:
     """Atomically save ``tree`` under step ``step``; with ``async_`` the
     files are written on a thread, which is returned (join it)."""
-    flat = _flatten(tree)
+    flat = tree_paths(tree)
     paths = [p for p, _ in flat]
     host_leaves = [_host(leaf, async_) for _, leaf in flat]
 
@@ -127,6 +114,13 @@ def _restore_leaf(arr: np.ndarray, example, path: str):
             raise ValueError(f"checkpoint leaf {path} has shape "
                              f"{list(arr.shape)}; expected "
                              f"{list(example.shape)}")
+        want = torch.empty(0, dtype=example.dtype).numpy().dtype
+        if arr.dtype.kind != want.kind:
+            # widening within a kind is safe; across kinds (a uint32 PRNG
+            # key read as int64, floats read as ints) the values change
+            # meaning
+            raise ValueError(f"checkpoint leaf {path} is {arr.dtype}; "
+                             f"expected a {want} leaf")
         return torch.from_numpy(np.asarray(arr, order="C")).to(
             device=example.device, dtype=example.dtype)
     if isinstance(example, np.ndarray):
@@ -146,7 +140,7 @@ def restore_checkpoint(ckpt_dir: str, example_tree: Any,
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    flat = _flatten(example_tree)
+    flat = tree_paths(example_tree)
     if len(flat) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves; "
                          f"expected {len(flat)}")

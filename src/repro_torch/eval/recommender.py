@@ -170,8 +170,7 @@ class Recommender:
         cfg = pipeline.cfg
         kw.setdefault("impl", pipeline.g.impl)
         kw.setdefault("device", pipeline.device)
-        kw.setdefault("topology", get_topology(cfg.memory_topology)
-                      .with_capacity(cfg.memory_capacity or {}))
+        kw.setdefault("topology", pipeline.topology)
         kw.setdefault("policy", cfg.memory_policy)
         kw.setdefault("hbm_budget", cfg.hbm_budget)
         kw.setdefault("pins", cfg.memory_pins)

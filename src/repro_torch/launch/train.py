@@ -13,13 +13,21 @@ streaming held-out eval ride along.  The run goes to the card unless
   python -m repro_torch.launch.train --arch ngcf --microbatch 512
   python -m repro_torch.launch.train --spec spec.json --set plan.microbatch=8
 
-Options the port does not have yet (the planner: ``--microbatch 0``,
-``--memory-topology``, ``--placement-policy``, ``--pin``; sharding:
-``--mesh``, ``--spmm``, ``--ring-steps``; compression:
-``--compress-*``, ``--embed-store int8``) build the same spec and then
-raise ``NotImplementedError`` naming their ROADMAP item, as do the
-legacy trainers (``--arch gcn-cora``: A11; ``--arch deepfm|xdeepfm|
-dlrm_rm2``: A12).  Checkpoints default to ``<tempdir>/repro_ckpt/<arch>``.
+  python -m repro_torch.launch.train --device cpu --preset lightgcn-smoke \
+      --microbatch 0 --memory-topology uniform --pin item_embed=slow \
+      --embed-store int8 --compress-grads topk --compress-frac 0.1
+
+``--microbatch 0`` derives the microbatch from the fast tier's headroom;
+the planner's flags (``--memory-topology``, ``--placement-policy``,
+``--pin``, and ``--set plan.hbm_budget=<bytes>`` as in the reference's
+launcher) place the state on the tiers, and the compression flags
+(``--compress-grads``, ``--compress-frac``, ``--embed-store``) compress
+the gradients and the host-store tables.
+Sharding (``--mesh``, ``--spmm``, ``--ring-steps``, ``--compress-ring``)
+builds the same spec and then raises ``NotImplementedError`` naming
+ROADMAP A10, as do the legacy trainers (``--arch gcn-cora``: A11;
+``--arch deepfm|xdeepfm|dlrm_rm2``: A12).  Checkpoints default to
+``<tempdir>/repro_ckpt/<arch>``.
 """
 from __future__ import annotations
 
@@ -80,8 +88,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--target-batch", type=int,
                     help="large-batch target (accumulated microbatches)")
     ap.add_argument("--microbatch", type=int,
-                    help="microbatch size; 0 = derive from HBM headroom "
-                         "(the planner, ROADMAP A5)")
+                    help="microbatch size; 0 = derive from HBM headroom")
     ap.add_argument("--embed-dim", type=int)
     ap.add_argument("--layers", type=int)
     ap.add_argument("--eval-every", type=int,

@@ -1,16 +1,17 @@
-"""The memory-tier subsystem (the port of ``repro/memory``), serving half.
+"""The memory-tier subsystem (the port of ``repro/memory``).
 
   ``TierTopology`` / ``Tier``  — registered descriptions of the memory
       system (the reference's presets and ``h100-hbm-host``);
   ``PlacementPolicy`` registry — greedy knapsack, exact DP, the paper's
       §6 ``paper-recipe`` pins, all-fast/all-slow baselines, by name;
-  ``TieredExecutor``           — makes a serving plan real: demoted
-      tables live in a host store behind the ``HostResident`` gather
-      facade (int8 in ``QuantizedHostResident``), optionally fronted by
-      a device-resident ``HotRowCache``.
+  ``TieredExecutor``           — makes a plan real: demoted training
+      leaves live in a pinned host store, fetched to the card once per
+      step and committed back after the update (int8 rows with
+      ``embed_store='int8'``); demoted serving tables sit behind the
+      ``HostResident`` gather facade (int8 in ``QuantizedHostResident``),
+      optionally fronted by a device-resident ``HotRowCache``.
 
-The training half (``TieredExecutor.place/fetch/commit`` and the
-planner's ``build_train_plan``) is ROADMAP A5.
+The planner entry is ``repro_torch.pipeline.plan.build_train_plan``.
 """
 from repro_torch.memory.cache import CacheStats, HotRowCache
 from repro_torch.memory.executor import (HostResident, QuantizedHostResident,

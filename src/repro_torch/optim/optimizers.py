@@ -35,6 +35,40 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_paths(tree, path: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in JAX's flattening order (dict keys sorted,
+    sequences in order), each path as ``jax.tree_util.keystr`` writes it:
+    ``['user_embed']``, ``['m']['item_embed']``, ``['w1'][0]``.  ``None``
+    and empty containers hold no leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_paths(tree[k], f"{path}[{k!r}]"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out.extend(tree_paths(v, f"{path}[{i}]"))
+        return out
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over the leaves, ``tree``'s structure kept; the
+    paths are ``tree_paths``'."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{path}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     # (grads, state, params[, lr=...]) -> (new_params, new_state)

@@ -1,28 +1,36 @@
 """Training engine (the port of ``repro/pipeline/engine.py``).
 
 One ``Pipeline`` holds a run's graph, model, optimizer, large-batch
-schedule and loader, and exposes the loop-consumable
+schedule, placement plan and loader, and exposes the loop-consumable
 ``step_fn(state, step) -> (state, loss)``:
 
+  TrainPlan            — placement over the run's actual tensor set on the
+                         configured topology and policy, the microbatch
+                         derived from the fast tier's headroom unless
+                         given (``pipeline.plan``), re-run on the loop's
+                         re-layout requests;
+  TieredExecutor       — demoted leaves live in a pinned host store,
+                         fetched to the card once per step and committed
+                         back after the update (``memory.executor``);
   LargeBatchSchedule   — per-epoch batch and LR (warm-up batch =
                          target/10 for the first epochs, linear scaling);
   microbatch gradient accumulation — the target batch B runs as
                          ceil(B/microbatch) microbatches whose gradients
                          are combined weighted by chunk size;
+  GradCompressor       — optional int8/top-k gradient compression with
+                         error feedback (``pipeline.compress``), its state
+                         under ``state["comp"]``;
   kernel-routed models — registry forwards aggregate through the CUDA
                          kernels (``pipeline.sparse``), whose backwards
                          are kernels too;
   EdgeLoader           — deterministic, resumable microbatch stream.
 
-The step runs eagerly; there is nothing to compile.  The reference's
-planner and memory tiers (ROADMAP A5), mesh execution (A10) and
-compression (A9) are not ported yet: a config that asks for any of them
-raises ``NotImplementedError`` naming its item, so nothing is ignored
-silently.  Until they land, the hooks the fault-tolerant loop and
-``api.Run`` call (``apply_plan``, ``on_relayout``, ``step_context``)
-keep the whole state on the pipeline's device, and ``shard`` is None.
-The state is ``{"params", "opt"}`` of nested dicts and lists of tensors,
-as the reference's pytrees.
+The step runs eagerly; there is nothing to compile.  Mesh execution and
+the compressed ring payload (ROADMAP A10) are not ported: a config that
+asks for them raises ``NotImplementedError`` naming the item, so nothing
+is ignored silently, and ``shard`` is None.  The state is ``{"params",
+"opt"}`` (plus ``"comp"`` under gradient compression) of nested dicts and
+lists of tensors, as the reference's pytrees.
 """
 from __future__ import annotations
 
@@ -39,10 +47,10 @@ from repro_torch.data.loader import EdgeLoader, LoaderState
 from repro_torch.data.synth import InteractionData, group_by_user
 from repro_torch.device import resolve_device
 from repro_torch.eval.metrics import evaluate_embeddings
-from repro_torch.eval.topk import DEFAULT_USER_BATCH
+from repro_torch.memory import TieredExecutor, get_topology
 from repro_torch.optim import adam, sgd
 from repro_torch.optim.optimizers import tree_leaves, tree_map
-from repro_torch.pipeline.plan import TrainPlan
+from repro_torch.pipeline.plan import build_train_plan, derive_eval_batch
 from repro_torch.pipeline.registry import get_model
 from repro_torch.pipeline.sparse import BipartiteCSR
 
@@ -58,15 +66,15 @@ class PipelineConfig:
     base_lr: float = 1e-3
     base_batch: int = 256
     target_batch: int = 2048
-    microbatch: int | None = None      # None -> derived by the planner (A5)
+    microbatch: int | None = None      # None -> derived from HBM headroom
     warmup_epochs: int = 2
     lr_scaling: str = "linear"         # 'linear' | 'sqrt' (paper ablation)
     l2: float = 1e-4
-    hbm_budget: int | None = None      # planner (A5)
+    hbm_budget: int | None = None      # fast-tier budget override (bytes)
     impl: str | None = None            # None | 'torch' | 'cuda'
     hadamard: str = "auto"             # NGCF route: 'auto' | 'fused' | 'composed'
     seed: int = 0
-    memory_topology: str = "tpu-hbm-host"     # planner (A5)
+    memory_topology: str = "tpu-hbm-host"     # repro_torch.memory
     memory_policy: str = "greedy"
     memory_capacity: dict | None = None
     memory_pins: dict | None = None
@@ -74,47 +82,36 @@ class PipelineConfig:
     mesh_axes: tuple[str, ...] | None = None
     spmm: str | None = None
     ring_steps: int | None = None
-    grad_compression: str = "none"            # compression (A9)
+    grad_compression: str = "none"            # 'none' | 'int8' | 'topk'
     compression_frac: float = 0.01
     compression_ef: bool = True
-    embed_store: str = "fp32"
-    ring_compression: str = "none"
+    embed_store: str = "fp32"                 # 'fp32' | 'int8' slow tier
+    ring_compression: str = "none"            # ring payload (A10)
     eval_k: int = 20
-    eval_user_batch: int | None = None  # None -> the port's default batch
+    eval_user_batch: int | None = None  # None -> derived from HBM headroom
     eval_item_block: int = 1024
 
 
 def check_ported(cfg: PipelineConfig) -> None:
     """Raise ``NotImplementedError`` naming the options ``cfg`` sets that
-    the port cannot run yet, each with the ROADMAP item that brings it."""
-    asks = {
-        "microbatch=None (derived by the planner, A5)": cfg.microbatch is None,
-        "hbm_budget (planner, A5)": cfg.hbm_budget is not None,
-        "memory_topology/memory_policy/memory_capacity/memory_pins "
-        "(memory tiers, A5)": (cfg.memory_topology != "tpu-hbm-host"
-                               or cfg.memory_policy != "greedy"
-                               or bool(cfg.memory_capacity)
-                               or bool(cfg.memory_pins)),
-        "mesh_shape/mesh_axes/spmm/ring_steps/impl='ring' (sharded "
-        "execution, A10)": (tuple(cfg.mesh_shape) != (1,)
-                            or cfg.mesh_axes is not None
-                            or cfg.spmm is not None
-                            or cfg.ring_steps is not None
-                            or cfg.impl == "ring"),
-        "grad_compression/ring_compression/embed_store='int8' "
-        "(compression, A9)": (cfg.grad_compression != "none"
-                              or cfg.ring_compression != "none"
-                              or cfg.embed_store != "fp32"),
-    }
-    asked = [name for name, on in asks.items() if on]
+    the port cannot run yet: sharded execution and its compressed ring
+    payload (ROADMAP A10)."""
+    asked = [name for name, on in {
+        "mesh_shape": tuple(cfg.mesh_shape) != (1,),
+        "mesh_axes": cfg.mesh_axes is not None,
+        "spmm": cfg.spmm is not None,
+        "ring_steps": cfg.ring_steps is not None,
+        "impl='ring'": cfg.impl == "ring",
+        "ring_compression": cfg.ring_compression != "none",
+    }.items() if on]
     if asked:
         raise NotImplementedError(
-            f"PipelineConfig options the port does not have yet "
-            f"(ROADMAP item in brackets): {asked}")
+            f"PipelineConfig options of sharded execution, which the port "
+            f"does not have yet (ROADMAP A10): {asked}")
 
 
 class Pipeline:
-    """One training run: graph, model, optimizer, schedule and loader."""
+    """One training run: state, plan, and the step the loop executes."""
 
     def __init__(self, cfg: PipelineConfig, train: InteractionData,
                  holdout: InteractionData | None = None, device="cuda"):
@@ -122,23 +119,57 @@ class Pipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec = get_model(cfg.arch)
+        self.shard = None                  # one card: no mesh (A10)
         self.g = BipartiteCSR(train.user, train.item, train.n_users,
                               train.n_items, device=self.device,
                               impl=cfg.impl, hadamard=cfg.hadamard)
+        # the kernel route the plan names: the port's own, never the
+        # reference's pallas/xla
+        impl = cfg.impl or ("cuda" if self.device.type == "cuda"
+                            else "torch")
+
+        params = self.spec.init(cfg.seed, self.g.n_users, self.g.n_items,
+                                cfg.embed_dim, cfg.n_layers,
+                                device=self.device)
         self.opt = {"adam": adam, "sgd": sgd}[cfg.optimizer](cfg.base_lr)
+        opt_state = self.opt.init(params)
+
         sched = LargeBatchSchedule(base_lr=cfg.base_lr,
                                    base_batch=cfg.base_batch,
                                    target_batch=cfg.target_batch,
                                    warmup_epochs=cfg.warmup_epochs,
                                    scaling=cfg.lr_scaling)
-        self.plan = TrainPlan(sched, int(cfg.microbatch))
+        self.topology = get_topology(cfg.memory_topology) \
+            .with_capacity(cfg.memory_capacity or {})
+        self.plan = build_train_plan(cfg.arch, self.spec, params, opt_state,
+                                     self.g, cfg.n_layers, cfg.embed_dim,
+                                     sched, impl, hbm_budget=cfg.hbm_budget,
+                                     microbatch=cfg.microbatch,
+                                     topology=self.topology,
+                                     policy=cfg.memory_policy,
+                                     pins=cfg.memory_pins,
+                                     embed_store=cfg.embed_store)
+        self.executor = TieredExecutor(self.plan.plan,
+                                       embed_store=cfg.embed_store,
+                                       device=self.device)
+        # compressed gradient combine (None = exact fp32).  Its state
+        # rides the training state under "comp": the executor's
+        # place/fetch/commit walk only params and opt
+        self.compressor = None
+        if cfg.grad_compression != "none":
+            from repro_torch.pipeline.compress import GradCompressor
+            self.compressor = GradCompressor(
+                cfg.grad_compression, cfg.compression_frac,
+                cfg.compression_ef)
+        state0 = {"params": params, "opt": opt_state}
+        if self.compressor is not None:
+            state0["comp"] = self.compressor.init_state(params, cfg.seed)
+        self._state0 = self.apply_plan(state0)
+
         self.loader = EdgeLoader(train.user, train.item,
-                                 batch=self.plan.microbatch,
+                                 batch=self.plan.global_microbatch,
                                  seed=cfg.seed)
         self._next_step = 0
-        self._state0 = None
-        self.shard = None                  # one card: no mesh (A10)
-        self.n_offloaded = 0               # nothing demoted (A5)
         self.eval_fn = None                # (state, step) -> metrics dict
         self._test_pos = None
         if holdout is not None:
@@ -146,23 +177,20 @@ class Pipeline:
 
     # ---------------------------------------------------------------- state
     def init_state(self):
-        """{"params", "opt"} from the seeded init (built on first call).
-        To start from other params — e.g. the reference's, carried over by
-        ``convert.params_from_jax`` — pair them with ``opt.init(params)``."""
-        if self._state0 is None:
-            params = self.spec.init(self.cfg.seed, self.g.n_users,
-                                    self.g.n_items, self.cfg.embed_dim,
-                                    self.cfg.n_layers, device=self.device)
-            self._state0 = {"params": params, "opt": self.opt.init(params)}
+        """The placed initial state from the seeded init.  To start from
+        other params — e.g. the reference's, carried over by
+        ``convert.params_from_jax`` — pair them with ``opt.init(params)``
+        and place them with ``apply_plan``."""
         return self._state0
 
     def apply_plan(self, state):
-        """Place every state leaf where the plan puts it (used on fresh
-        state, after re-layout and on checkpoint restore).  Without the
-        planner (ROADMAP A5) every leaf goes to the pipeline's device and
-        nothing is offloaded."""
-        self.n_offloaded = 0
-        return tree_map(lambda t: t.to(self.device), state)
+        """Place every state leaf onto its planned memory tier (used on
+        fresh state, after re-layout and on checkpoint restore): demoted
+        ``params``/``opt`` leaves into the executor's host store, the rest
+        onto the pipeline's device; ``step_fn`` then fetches the demoted
+        ones once per step and commits them back."""
+        state, self.n_offloaded = self.executor.place(state)
+        return state
 
     def step_context(self):
         """The context one engine step runs under; the loop enters it
@@ -182,7 +210,7 @@ class Pipeline:
         """LR scaled to the batch actually run this epoch: the schedule's
         batch rounded up to whole microbatches."""
         actual = self.plan.microbatches_for_epoch(epoch) \
-            * self.plan.microbatch
+            * self.plan.global_microbatch
         return self.plan.sched.scaled_lr(actual)
 
     def steps_per_epoch(self, epoch: int) -> int:
@@ -219,7 +247,7 @@ class Pipeline:
         Per-chunk mean-loss gradients are combined weighted by chunk size,
         so the result equals the full-batch gradient even when the batch
         is not a microbatch multiple.  Returns (mean_loss, grads)."""
-        mu = self.plan.microbatch
+        mu = self.plan.global_microbatch
         n = len(users)
         k = max(1, math.ceil(n / mu))
         loss_sum = None      # device scalar: no host sync inside the loop
@@ -283,33 +311,50 @@ class Pipeline:
         self._next_step = step
 
     def step_fn(self, state, step: int):
-        """(state, step) -> (state, loss): one accumulated update."""
+        """(state, step) -> (state, loss): one accumulated update.  Demoted
+        leaves come to the device once for the whole step (the tables do
+        not change inside one accumulated batch) and go back after the
+        update; identity when nothing is demoted."""
         if step != self._next_step:
             self.seek(step)
         epoch = self.current_epoch()
         k = self.plan.microbatches_for_epoch(epoch)
         users, pos, neg = self._next_target_batch(k, step)
+        state = self.executor.fetch(state)
         loss, grads = self.grads_for_batch(state["params"], users, pos, neg)
         lr = torch.tensor(self.lr_for_epoch(epoch), dtype=torch.float32,
                           device=self.device)
+        out = {}
         with torch.no_grad():
-            params, opt = self.opt.update(grads, state["opt"],
-                                          state["params"], lr=lr)
+            if self.compressor is not None:
+                grads, out["comp"] = self.compressor(grads, state["comp"])
+            out["params"], out["opt"] = self.opt.update(
+                grads, state["opt"], state["params"], lr=lr)
         self._next_step = step + 1
-        return {"params": params, "opt": opt}, loss
+        return self.executor.commit(out), loss
 
     def on_relayout(self, state):
-        """The loop's straggler escalation: re-plan and re-place the state.
-        The planner is ROADMAP A5; until then the placement is unchanged
-        and the state is re-placed as ``apply_plan`` places it."""
+        """The loop's straggler escalation: re-run the planner over the
+        current tensor set (the microbatch kept) and re-place the state."""
+        cfg = self.cfg
+        self.plan = build_train_plan(
+            cfg.arch, self.spec, state["params"], state["opt"], self.g,
+            cfg.n_layers, cfg.embed_dim, self.sched, self.plan.impl,
+            hbm_budget=cfg.hbm_budget, microbatch=self.plan.microbatch,
+            topology=self.topology, policy=cfg.memory_policy,
+            pins=cfg.memory_pins, embed_store=cfg.embed_store)
+        self.executor = TieredExecutor(self.plan.plan,
+                                       embed_store=cfg.embed_store,
+                                       device=self.device)
         return self.apply_plan(state)
 
     # ---------------------------------------------------------------- eval
     def embeddings(self, state):
-        """Final (user, item) embeddings for evaluation."""
+        """Final (user, item) embeddings for evaluation, from the device
+        copies of any demoted leaves (``executor.fetch``)."""
+        params = self.executor.fetch(state)["params"]
         with torch.no_grad():
-            return self.spec.forward(state["params"], self.g,
-                                     self.cfg.n_layers)
+            return self.spec.forward(params, self.g, self.cfg.n_layers)
 
     def attach_holdout(self, holdout: InteractionData) -> None:
         """Enable ``evaluate`` and periodic held-out evaluation: held-out
@@ -325,12 +370,13 @@ class Pipeline:
         self.eval_fn = eval_fn
 
     def eval_user_batch(self) -> int:
-        """User batch of one eval sweep: configured, else the port's
-        default (the reference derives it from the planner's headroom;
-        the metrics do not depend on it)."""
+        """User microbatch for one eval sweep: configured, or derived
+        from the fast tier left after the training plan's placements."""
         if self.cfg.eval_user_batch is not None:
             return int(self.cfg.eval_user_batch)
-        return DEFAULT_USER_BATCH
+        free = self.plan.hbm_budget - self.plan.plan.hbm_used
+        return derive_eval_batch(free, self.out_dim(), self.cfg.eval_k,
+                                 self.cfg.eval_item_block)
 
     def evaluate(self, state) -> dict:
         """One held-out sweep (recall/NDCG@eval_k + MRR) on ``state``."""

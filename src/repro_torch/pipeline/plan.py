@@ -1,15 +1,87 @@
-"""The batching and serving halves of ``repro/pipeline/plan.py``: how a
-target batch splits into accumulated microbatches, and the access
-profiles the serving snapshot is placed by.  Training placement
-(``profiles_from_state``, ``build_train_plan``) is ROADMAP A5; until it
-lands the port takes the microbatch from its caller."""
+"""TrainPlan — the placement and batching contract of one training run
+(the port of ``repro/pipeline/plan.py``).
+
+The placement policy decides which tensors keep fast-tier residency, and
+the fast-tier capacity left over bounds the microbatch; the 150K-sample
+target batches of §7.1 then run as ``ceil(B/microbatch)`` accumulated
+microbatches.  ``build_train_plan`` profiles the run's actual tensor set
+(every params/optimizer leaf by its real bytes, the CSR adjacency, and —
+only for models that form them — the per-layer edge-message matrices),
+runs the selected ``repro_torch.memory`` placement policy over the
+selected ``TierTopology``, and derives the microbatch.  The port runs on
+one card, so the plan has one shard; the planner's numbers equal the
+reference's on the same state.
+"""
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import torch
+
 from repro_torch.core.large_batch import LargeBatchSchedule
-from repro_torch.memory import AccessProfile
+from repro_torch.memory import (AccessProfile, Plan, TieredExecutor,
+                                get_policy, get_topology,
+                                quantized_table_bytes)
+from repro_torch.optim.optimizers import tree_paths
+
+
+def _leaf_profiles(tree, prefix: str, reads: float, writes: float,
+                   embed_store: str = "fp32") -> list[AccessProfile]:
+    """One AccessProfile per leaf with bytes, named ``prefix`` + the leaf's
+    ``jax.tree_util.keystr`` path (``params['user_embed']``,
+    ``opt['m']['w1'][0]``, ``opt['t']``), as the reference names them:
+    pins match these names by substring."""
+    out = []
+    for path, leaf in tree_paths(tree):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        itemsize = leaf.element_size()
+        nbytes = leaf.numel() * itemsize
+        if nbytes == 0:
+            continue
+        row = (leaf.shape[-1] if leaf.dim() else 1) * itemsize
+        # int8 capacity-tier storage: 2-D fp32 params tables carry their
+        # quantized footprint (1 B/element + one fp32 scale per row) —
+        # the leaves TieredExecutor._wants_int8 quantizes
+        store = quantized_table_bytes(max(nbytes // row, 1), row) \
+            if (embed_store == "int8" and prefix == "params"
+                and leaf.dim() == 2 and leaf.dtype == torch.float32) \
+            else None
+        out.append(AccessProfile(prefix + path, nbytes,
+                                 reads_per_step=reads,
+                                 writes_per_step=writes, access_size=row,
+                                 store_bytes=store))
+    return out
+
+
+def profiles_from_state(params, opt_state, g, n_layers: int, spec,
+                        embed_dim: int,
+                        embed_store: str = "fp32") -> list[AccessProfile]:
+    """AccessProfiles over the run's actual tensor set (paper §2.1 memory
+    model, measured from the live state instead of assumed shapes)."""
+    profs = []
+    # embedding tables + weights: read every layer fwd+bwd, written once
+    profs += _leaf_profiles(params, "params", reads=2.0 * n_layers,
+                            writes=1.0, embed_store=embed_store)
+    # optimizer state: one read + one write per update
+    profs += _leaf_profiles(opt_state, "opt", reads=1.0, writes=1.0)
+    # adjacency: read-only, tiny access granularity (the reference's byte
+    # count, BipartiteCSR.graph_nbytes)
+    profs.append(AccessProfile("graph/csr", g.graph_nbytes(),
+                               reads_per_step=2.0 * n_layers,
+                               writes_per_step=0.0, access_size=8))
+    if spec.messages_materialized(g):
+        # per-layer messages are layer-input wide ([E, embed_dim]) even
+        # when the model concatenates layer outputs; the fused Hadamard
+        # route never forms them: no profile, and the microbatch derives
+        # against the reclaimed budget
+        row = embed_dim * 4
+        for l in range(n_layers):
+            profs.append(AccessProfile(
+                f"messages_l{l}", max(g.n_edges * row, row),
+                reads_per_step=2.0, writes_per_step=2.0, access_size=row))
+    return profs
 
 
 def derive_microbatch(free_hbm: int, out_dim: int, target_batch: int,
@@ -76,12 +148,98 @@ def serving_profiles(user_nbytes: int, item_nbytes: int, row: int,
 
 @dataclasses.dataclass
 class TrainPlan:
-    """The batching of one training configuration: ``microbatch`` samples
-    per accumulation chunk.  The port runs one shard, so the reference's
-    per-shard and global microbatch are the same number."""
+    """Everything the engine needs to run one training configuration.
+
+    ``impl`` names the port's kernel route (``torch`` or ``cuda``).  The
+    port runs one shard, so ``shards`` is 1 and ``global_microbatch`` is
+    the microbatch; ``hbm_budget`` is the fast-tier budget and the full
+    per-tier budgets live on ``plan.budgets``."""
+    arch: str
+    plan: Plan                     # tier placement over the tensor set
     sched: LargeBatchSchedule
     microbatch: int
+    impl: str                      # kernel route ('torch' | 'cuda')
+    hbm_budget: int                # fast-tier budget
+    shards: int = 1
+
+    @property
+    def global_microbatch(self) -> int:
+        return self.microbatch * self.shards
+
+    @property
+    def topology(self):
+        return self.plan.topology
+
+    @property
+    def write_policy(self) -> dict[str, str]:
+        """Per-kernel §6 write-policy table, emitted from the plan."""
+        return self.plan.write_policy()
 
     def microbatches_for_epoch(self, epoch: int) -> int:
         return max(1, math.ceil(self.sched.batch_for_epoch(epoch)
-                                / self.microbatch))
+                                / self.global_microbatch))
+
+    def describe(self) -> str:
+        tiers = {}
+        for name, p in self.plan.placements.items():
+            tiers.setdefault(p.tier, []).append(name)
+        shard_txt = f" shards={self.shards}" if self.shards > 1 else ""
+        fast = self.topology.fast.name
+        lines = [f"TrainPlan[{self.arch}] impl={self.impl}{shard_txt} "
+                 f"microbatch={self.microbatch} "
+                 f"target_batch={self.sched.target_batch} "
+                 f"topology={self.topology.name} policy={self.plan.policy} "
+                 f"{fast}={self.plan.hbm_used/2**20:.1f}/"
+                 f"{self.hbm_budget/2**20:.1f} MiB "
+                 f"est_penalty={self.plan.est_step_penalty_s*1e3:.2f} ms/step"]
+        for tier in self.topology.names:
+            names = tiers.get(tier, [])
+            if names:
+                lines.append(f"  {tier}: {', '.join(sorted(names))}")
+        wp = self.write_policy
+        lines.append("  write_policy: "
+                     + " ".join(f"{k}={wp[k]}" for k in sorted(wp)))
+        return "\n".join(lines)
+
+
+def build_train_plan(arch: str, spec, params, opt_state, g, n_layers: int,
+                     embed_dim: int, sched: LargeBatchSchedule, impl: str,
+                     hbm_budget: int | None = None,
+                     microbatch: int | None = None,
+                     topology: "str | object" = "tpu-hbm-host",
+                     policy: str = "greedy",
+                     pins: dict | None = None,
+                     embed_store: str = "fp32") -> TrainPlan:
+    """Profile -> place -> derive the microbatch.  ``topology`` names a
+    registered ``TierTopology`` (or is one); ``policy`` names a registered
+    placement policy; ``pins`` force tensors onto tiers by (sub)name.
+    ``hbm_budget`` overrides the fast tier's capacity."""
+    topo = get_topology(topology)
+    budgets = topo.capacities()
+    if hbm_budget is not None:
+        budgets[topo.fast.name] = int(hbm_budget)
+    budget = budgets[topo.fast.name]
+    profs = profiles_from_state(params, opt_state, g, n_layers, spec,
+                                embed_dim, embed_store=embed_store)
+    plan = get_policy(policy)(profs, topo, budgets=budgets, pins=pins)
+    if microbatch is None:
+        microbatch = derive_microbatch(budget - plan.hbm_used,
+                                       spec.out_dim(embed_dim, n_layers),
+                                       max(1, sched.target_batch))
+    return TrainPlan(arch, plan, sched, int(microbatch), impl, budget)
+
+
+# ---------------------------------------------------------------- placement
+def host_offload_sharding():
+    """The reference's sharding onto the host memory kind.  PyTorch has no
+    memory kinds, so there is none: None, as the reference returns on
+    backends without them (a demoted leaf then goes to the executor's
+    host store)."""
+    return None
+
+
+def apply_placements(state, plan: Plan, device="cuda") -> tuple[object, int]:
+    """Place every state leaf onto its planned tier.  Returns
+    (state, n_offloaded).  A thin wrapper: the engine drives a
+    ``repro_torch.memory.TieredExecutor`` directly."""
+    return TieredExecutor(plan, device=device).place(state)

@@ -197,6 +197,29 @@ class BipartiteCSR:
         items[indptr[u]:indptr[u+1]] are user u's already-seen item ids."""
         return self._seen_indptr, self._seen_items
 
+    def csr_nbytes(self) -> int:
+        """Bytes of the CSR adjacency (both directions) as the reference
+        counts them: its seven arrays at its dtypes, all int32, so the
+        planner's profiles and ``describe()`` lines equal the reference's.
+        The port holds its two row-pointer arrays as int64, so it holds
+        ``port_csr_nbytes()`` — (n_users + n_items + 2) × 4 B more."""
+        return 4 * (5 * self.n_edges + self.n_users + self.n_items + 2)
+
+    def port_csr_nbytes(self) -> int:
+        """Bytes of the seven CSR arrays as the port holds them."""
+        arrs = (self.ui_indptr, self.ui_src, self.ui_dst, self.iu_indptr,
+                self.iu_src, self.iu_dst, self.perm_ui_to_iu)
+        return sum(a.numel() * a.element_size() for a in arrs)
+
+    def ring_nbytes(self) -> int:
+        """Bytes of the ring bucket cubes: 0, the port has no ring
+        dispatch (ROADMAP A10)."""
+        return 0
+
+    def graph_nbytes(self) -> int:
+        """Bytes of the whole adjacency structure (CSR + ring cubes)."""
+        return self.csr_nbytes() + self.ring_nbytes()
+
     def sym_propagate(self, x_user: torch.Tensor, x_item: torch.Tensor):
         """One symmetric-normalised propagation (a LightGCN/GCN layer):
         h_i = sum_e x_u / sqrt(d_u d_i), both directions."""

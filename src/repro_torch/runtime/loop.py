@@ -120,8 +120,8 @@ def run_training(cfg: LoopConfig, init_state: Any,
 def run_pipeline(cfg: LoopConfig, pipeline) -> LoopReport:
     """Drive a ``repro_torch.pipeline.Pipeline`` under the fault-tolerant
     loop: the pipeline supplies the initial state, the accumulated-
-    microbatch ``step_fn``, ``on_relayout`` and ``apply_plan`` (both
-    re-place the state; identity until the planner, ROADMAP A5)."""
+    microbatch ``step_fn``, ``on_relayout`` (re-plans and re-places the
+    state) and ``apply_plan`` (re-places restored leaves on their tiers)."""
     return run_training(cfg, pipeline.init_state(), pipeline.step_fn,
                         on_relayout=pipeline.on_relayout,
                         on_restore=pipeline.apply_plan,

@@ -31,6 +31,7 @@ from repro_torch.api import (CompressionCfg, DataCfg, EvalCfg, Experiment,
                              load_data, preset_names)
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import train as ttrain
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_torch_train.py's trajectory tolerances
 LOSS_RTOL = 1e-4
@@ -309,14 +310,30 @@ def _from_reference_init(run, jrun):
     run.state = {"params": params, "opt": run.pipeline.opt.init(params)}
 
 
-def test_full_preset_without_microbatch_raises_naming_a5():
-    """The ``*-full`` presets leave the microbatch to the planner; the
-    port raises before any data is made, unless it is overridden."""
-    for name in ("lightgcn-full", "ngcf-full"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            Experiment.from_preset(name).build(device="cpu")
-    spec = get_preset("lightgcn-full").override({"plan.microbatch": 64})
-    assert spec.to_pipeline_config().microbatch == 64
+def _masked(text):
+    """``describe()`` lines with the kernel route's token masked: the
+    port names its own (torch/cuda), the reference pallas/xla."""
+    return [" ".join("impl=*" if w.startswith("impl=") else w
+                     for w in line.split(" ")) for line in text.splitlines()]
+
+
+@pytest.mark.parametrize("name", ["lightgcn-full", "ngcf-full"])
+def test_full_presets_build_with_the_reference_microbatch(name):
+    """The ``*-full`` presets leave the microbatch to the planner and
+    build as they are, here on the smoke's small graph: the reference's
+    derived microbatch (150,528, the target batch, on the 16 GiB fast
+    tier of ``tpu-hbm-host``) and eval batch (4,096, the cap), and its
+    ``Run.describe()`` but for the ``impl=`` token."""
+    train, test = load_data(get_preset("lightgcn-smoke").data)
+    run = Experiment.from_preset(name).build(train=train, holdout=test,
+                                             device="cpu")
+    jrun = JExperiment.from_preset(name).build(train=train, holdout=test)
+    assert run.pipeline.plan.microbatch == jrun.pipeline.plan.microbatch \
+        == 150_528
+    assert run.pipeline.eval_user_batch() == \
+        jrun.pipeline.eval_user_batch() == 4096
+    assert _masked(run.describe()) == _masked(jrun.describe())
+    assert "impl=torch" in run.describe().splitlines()[1]
 
 
 @pytest.mark.parametrize("preset,steps", [("lightgcn-smoke", 20),

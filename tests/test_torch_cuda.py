@@ -535,3 +535,92 @@ def test_topk_routes_at_k_300_on_card_match_plain(dev):
     assert launch_counts()["fused_topk_score"] > before
     np.testing.assert_array_equal(i_a, i_p)
     np.testing.assert_array_equal(s_a, s_p)
+
+
+# ------------------------------------------------------ tiered training
+def _tiered_pipeline(dev, **kw):
+    from repro_torch.data import synth
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    data = synth.generate_bipartite(500, 300, 8000, seed=0)
+    cfg = PipelineConfig(arch="lightgcn", embed_dim=64, n_layers=2,
+                         target_batch=1024, base_batch=1024, microbatch=512,
+                         warmup_epochs=0, memory_topology="h100-hbm-host",
+                         **kw)
+    return build_pipeline(cfg, data, device=dev)
+
+
+def test_place_fetch_commit_round_trip_bitwise_on_pinned_stores(dev):
+    """Demoted leaves are pinned host tensors between steps; fetch brings
+    their bits to the card and commit their updated bits back; 3 steps
+    equal the all-device run's bit for bit, and the link bytes are each
+    demoted leaf once per direction per step."""
+    from repro_torch.optim.optimizers import tree_paths
+    fast = _tiered_pipeline(dev)
+    slow = _tiered_pipeline(dev, memory_pins={"_embed": "host"})
+    assert slow.n_offloaded == 6
+    sa, sb = fast.init_state(), slow.init_state()
+    demoted = {n for n, t in tree_paths({"params": sb["params"],
+                                         "opt": sb["opt"]})
+               if not t.is_cuda}
+    assert len(demoted) == 6
+    for (p, a), (_, b) in zip(tree_paths(sa), tree_paths(sb)):
+        assert torch.equal(a.cpu(), b.cpu()), p
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in tree_paths(sb) if not t.is_cuda)
+    assert all(t.is_pinned() for _, t in tree_paths(sb) if not t.is_cuda)
+    fetched = slow.executor.fetch(sb)
+    assert all(t.is_cuda for _, t in tree_paths(fetched))
+    slow.executor.link_bytes = {"h2d": 0, "d2h": 0}
+    for step in range(3):
+        sa, la = fast.step_fn(sa, step)
+        sb, lb = slow.step_fn(sb, step)
+        assert la == lb
+    assert slow.executor.link_bytes == {"h2d": 3 * nbytes, "d2h": 3 * nbytes}
+    for (p, a), (_, b) in zip(tree_paths(sa), tree_paths(sb)):
+        assert b.is_cuda == a.is_cuda or b.is_pinned(), p
+        assert torch.equal(a.cpu(), b.cpu()), p
+
+
+def test_demoted_bytes_leave_the_card_between_steps(dev):
+    """Between steps the demoted tables and their Adam moments are off
+    the card: memory allocated drops by at least 90 % of their bytes."""
+    def between(pipe):
+        state = pipe.init_state()
+        state, _ = pipe.step_fn(state, 0)
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        demoted = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state) if not t.is_cuda)
+        del state
+        return held, demoted
+
+    fast, _ = between(_tiered_pipeline(dev))
+    torch.cuda.empty_cache()
+    slow, demoted = between(_tiered_pipeline(
+        dev, memory_pins={"_embed": "host"}))
+    assert demoted > 0 and fast - slow >= 0.9 * demoted, (fast, slow,
+                                                           demoted)
+
+
+def test_int8_row_quantizer_on_card_equals_numpy(dev):
+    """The device quantizer of the int8 store against the numpy one the
+    reference uses, bit for bit: random rows, all-zero rows, maxima that
+    are multiples of 127, values halfway between two quanta."""
+    from repro_torch.optim.compression import (quantize_rows_int8,
+                                               quantize_rows_int8_tensor)
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((4096, 128)).astype(np.float32)
+    table[0] = 0.0
+    table[1, :4] = [127 * 3, 1.5 * 3, 2.5 * 3, -0.5 * 3]
+    table[1, 4:] = 0.0
+    for r in range(2, 66):
+        m = np.float32(rng.uniform(0.1, 100.0))
+        scale = np.float32(m / np.float32(127.0) + np.float32(1e-12))
+        table[r, 0] = m
+        table[r, 1:] = (rng.integers(-126, 126, 127) + 0.5) \
+            .astype(np.float32) * scale
+    q, scale = quantize_rows_int8(table)
+    tq, tscale = quantize_rows_int8_tensor(torch.from_numpy(table).to(dev))
+    np.testing.assert_array_equal(tq.cpu().numpy(), q)
+    np.testing.assert_array_equal(tscale.cpu().numpy().view(np.int32),
+                                  scale.view(np.int32))
