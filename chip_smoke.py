@@ -60,7 +60,15 @@ Phases (any failure exits non-zero before the last line is printed):
      fetch and commit ms, link bytes, memory between steps, peak memory
      and the plan's est_penalty; then ``Run.evaluate`` on arm B, with
      ``_padded_seen``'s and ``ranking_metrics``' shares timed;
-  9. hold ``sddmm`` against its plain version at adversarial shapes
+  9. sharded execution at one shard (``sharded``): a one-rank NCCL
+     group through a ``FileStore``; ``lightgcn-full`` with ``mesh.spmm =
+     "ring"`` through ``Run.fit`` (each layer one ``spmm_csr`` over the
+     unified 402,432 rows), held against the kernel route of the same
+     preset (first forward's embeddings, losses at the reference's
+     sharded tolerance) and the int8 ring bit for bit the fp32 ring;
+     ``Run.evaluate`` on the ring run; the bucket build, the ring's bytes,
+     ring and kernel-route layer ms, step ms and the one-rank all-reduce;
+  10. hold ``sddmm`` against its plain version at adversarial shapes
      (with and without edge groups: groups longer than several chunks,
      groups keyed on dst, groups of another call refused) and past 2^31
      output elements, then drive the seed COO path (``coo``) on the same
@@ -73,9 +81,9 @@ Phases (any failure exits non-zero before the last line is printed):
      breakdown of one O3 layer; the ``sddmm`` kernel line ('mul' and
      'dot' walking the user groups, the edge-order walk beside them, and
      ``torch.sparse.sampled_addmm`` as the 'dot' yardstick);
-  10. the subgraph-training baseline beside the full-graph step at depth
+  11. the subgraph-training baseline beside the full-graph step at depth
      1-3 (``subgraph``, the paper's headline comparison);
-  11. print ``{"kernels": [...]}`` and, last, the device line.
+  12. print ``{"kernels": [...]}`` and, last, the device line.
 Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
 from __future__ import annotations
@@ -174,6 +182,17 @@ TIERED_VS = {"B_demoted_fp32": ("A_device", "bitwise"),
              "D_grads_topk": ("A_lr_1e-3", (5e-3, 2e-3)),
              "D_grads_int8_preset_lr": ("A_device", None),
              "D_grads_topk_preset_lr": ("A_device", None)}
+# the sharded phase: the lightgcn-full preset (tiered_train's microbatch)
+# through Run.fit for SHARDED_STEPS steps per arm, in a one-rank NCCL group:
+# the kernel route, the ring at one shard, and the ring with its int8
+# payload (bit for bit the fp32 ring: one bucket, read exact); the losses
+# held to the reference's sharded tolerance (tests/test_distributed.py:284);
+# step times are medians from step TIERED_STEADY on (the host clock reads
+# an occasional step at several times its neighbours)
+SHARDED_STEPS = 5
+SHARDED_RTOL, SHARDED_ATOL = 5e-3, 1e-5
+SHARDED_ARMS = {"kernel": {}, "ring": {"mesh.spmm": "ring"},
+                "ring_int8": {"mesh.spmm": "ring", "compression.ring": "int8"}}
 # seed COO path: O0's backward keeps ~5 [E, D] tensors per layer, so O0 is
 # timed against O3 on the first 2^22 train edges; the cells' step uses the
 # reference cells' optimizer (src/repro/launch/cells.py:36: adam(1e-4))
@@ -233,6 +252,7 @@ TRAINING_KERNELS = ("spmm_csr", "hadamard_spmm")
 COO_KERNELS = ("sddmm",)
 API_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 TIERED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
+SHARDED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 # spmm_csr's row-split cases (check_spmm); gathered rows come from a table
 # of SPLIT_SRC_ROWS rows
 SPLIT_CASES = ("long_row", "boundaries", "no_edges", "long_indptr")
@@ -1946,7 +1966,7 @@ def tiered_train(torch, dev, train, test, api_eval_s):
     within the reference's tolerances of A — and ``Run.evaluate()`` on
     arm B at the derived eval batch.  One graph serves every build: the
     host-side CSR sort (~7.5 s) is set-up, not what the arms compare.
-    Returns the phase's launches."""
+    Returns the phase's launches and that graph."""
     from repro_torch import kernels
     from repro_torch.api import Experiment
     from repro_torch.eval import metrics as metrics_mod
@@ -2079,6 +2099,155 @@ def tiered_train(torch, dev, train, test, api_eval_s):
               n: v - between["B_demoted_fp32"] for n, v in between.items()},
           "eval_s": {"tiered_train_B": b["eval_s"], "api": api_eval_s},
           "launches": {k: launches[k] for k in TIERED_KERNELS}})
+    return launches, graph
+
+
+# ------------------------------------------------------------------ sharded
+def sharded_arm(torch, dev, exp, name, train, test):
+    """One arm of ``sharded``: the arm's spec built, its first forward's
+    embeddings, the ring's bucket build timed (ring arms), then
+    ``Run.fit()`` timed per loop step.  Returns (run, record, embeddings)."""
+    run = exp.override({"loop.steps": SHARDED_STEPS, **SHARDED_ARMS[name]}) \
+        .build(train=train, holdout=test, device=dev)
+    pipe = run.pipeline
+    rec = {"arm": name, "describe": run.describe().splitlines()[:3],
+           "microbatch": pipe.plan.microbatch}
+    if pipe.g.spmm == "ring":
+        t0 = time.perf_counter()
+        pipe.g._ring.ring("sym")
+        torch.cuda.synchronize()
+        rec["bucket_build_s"] = time.perf_counter() - t0
+        rec["ring_nbytes"] = pipe.g.ring_nbytes()
+        rec["port_ring_nbytes"] = pipe.g.port_ring_nbytes()
+    emb = pipe.embeddings(run.state)
+    timer = StepTimer(torch, pipe.step_context)
+    pipe.step_context = timer
+    report = run.fit()
+    del pipe.step_context
+    rec["losses"], rec["ms_per_step"] = report.losses, timer.ms
+    require(report.steps_run == SHARDED_STEPS
+            and np.isfinite(report.losses).all()
+            and pipe.plan.microbatch == FULL_MICROBATCH,
+            f"sharded {name}: {report.steps_run} steps, {report.losses}, "
+            f"microbatch {pipe.plan.microbatch}")
+    return run, rec, emb
+
+
+def sharded_phase(torch, dev, train, test, graph):
+    """Sharded execution at one shard on the card: a one-rank NCCL group
+    through a ``FileStore``; the ``lightgcn-full`` preset with
+    ``mesh.spmm = "ring"`` (every layer one ``spmm_csr`` over the unified
+    402,432 rows, forward and transposed) against the kernel route of the
+    same preset (its first forward's embeddings within close_sum's
+    tolerance, its losses within the reference's sharded tolerance), and
+    the int8 ring payload bit for bit the fp32 ring; ``Run.evaluate()`` on
+    the ring run.  Then the ring's and the kernel route's layer, the bare
+    ring call forward and transposed, and the one-rank all-reduce, timed.
+    Returns the ring runs' launches."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.api import Experiment
+    from repro_torch.pipeline import engine, get_model, sparse
+    t_phase = time.perf_counter()
+    _free(torch)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(pathlib.Path(tmp) / "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+    # the kernel arm reuses tiered_train's graph (its CSR sort is set-up);
+    # a ring arm builds its own, ring included
+    engine.BipartiteCSR = lambda *a, shard=None, **kw: graph \
+        if shard is None else sparse.BipartiteCSR(*a, shard=shard, **kw)
+    try:
+        exp = Experiment.from_preset("lightgcn-full")
+        k_run, k_rec, (k_ue, k_ie) = sharded_arm(torch, dev, exp, "kernel",
+                                                 train, test)
+        params = {n: t.clone() for n, t in
+                  k_run.pipeline.init_state()["params"].items()}
+        with torch.no_grad():
+            # every term of the LightGCN forward is non-negative over |x|
+            a_ue, a_ie = get_model("lightgcn").forward(
+                {n: t.abs() for n, t in params.items()}, graph, N_LAYERS)
+        del k_run
+        _free(torch)
+        kernels.reset_launch_counts()
+        r_run, r_rec, (r_ue, r_ie) = sharded_arm(torch, dev, exp, "ring",
+                                                 train, test)
+        q_run, q_rec, (q_ue, q_ie) = sharded_arm(torch, dev, exp,
+                                                 "ring_int8", train, test)
+        t0 = time.perf_counter()
+        metrics = r_run.evaluate()
+        eval_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        for name in SHARDED_KERNELS:
+            require(launches[name] > 0,
+                    f"kernel {name} never launched on the sharded path")
+        errs = {"user": close_sum(torch, r_ue, k_ue, a_ue, "ring user emb"),
+                "item": close_sum(torch, r_ie, k_ie, a_ie, "ring item emb")}
+        want, got = np.array(k_rec["losses"]), np.array(r_rec["losses"])
+        loss_err = float(np.abs(got - want).max())
+        require((np.abs(got - want) <= SHARDED_ATOL
+                 + SHARDED_RTOL * np.abs(want)).all(),
+                f"ring losses {got} off the kernel route's {want}")
+        require(q_rec["losses"] == r_rec["losses"]
+                and torch.equal(q_ue, r_ue) and torch.equal(q_ie, r_ie)
+                and all(torch.equal(q_run.state["params"][n],
+                                    r_run.state["params"][n])
+                        for n in r_run.state["params"]),
+                "the int8 ring at one shard differs from the fp32 ring")
+        require(all(0.0 <= v <= 1.0 for v in metrics.values()),
+                f"sharded evaluate: {metrics}")
+        del q_run, q_ue, q_ie, k_ue, k_ie, a_ue, a_ie
+        _free(torch)
+        # timings, after the launch counts: a layer of each route, the
+        # bare ring forward and transposed, the one-rank all-reduce
+        g = r_run.pipeline.g
+        xu, xi = params["user_embed"], params["item_embed"]
+        with torch.no_grad():
+            z = torch.cat([xu * g.rsqrt_du[:, None], xi * g.rsqrt_di[:, None]])
+            fwd, bwd = g._ring.ring("sym"), g._ring.ring("sym_T")
+            times = {
+                "ring_layer_ms": cuda_ms(torch,
+                                         lambda: g.sym_propagate(xu, xi)),
+                "kernel_layer_ms": cuda_ms(
+                    torch, lambda: graph.sym_propagate(xu, xi)),
+                "ring_spmm_forward_ms": cuda_ms(torch, lambda: fwd(z)),
+                "ring_spmm_transposed_ms": cuda_ms(torch, lambda: bwd(z)),
+                "all_reduce_ms": cuda_ms(torch, lambda: dist.all_reduce(z)),
+            }
+        step_med = {r["arm"]: float(np.median(r["ms_per_step"][
+            TIERED_STEADY:])) for r in (k_rec, r_rec, q_rec)}
+        emit({"phase": "sharded", "preset": "lightgcn-full",
+              "group": "nccl, world size 1 (FileStore)",
+              "steps": SHARDED_STEPS,
+              "seconds": time.perf_counter() - t_phase,
+              "arms": [k_rec, r_rec, q_rec],
+              "bucket_build_s": r_rec["bucket_build_s"],
+              "ring_nbytes": r_rec["ring_nbytes"],
+              "port_ring_nbytes": r_rec["port_ring_nbytes"],
+              "unified_rows": g._ring.part.n_pad,
+              "ring_edges": int(fwd.src[0].numel()),
+              "all_reduce_bytes": z.numel() * z.element_size(),
+              **times, "step_ms_median_steady": step_med,
+              "steady_from_step": TIERED_STEADY,
+              "ring_minus_kernel_step_ms": step_med["ring"]
+              - step_med["kernel"],
+              "embedding_max_abs_err": errs, "loss_max_abs_err": loss_err,
+              "tolerance": {"embeddings": f"|err| <= {ATOL} + {RTOL} x sum "
+                            "of |terms|", "losses": {"rtol": SHARDED_RTOL,
+                                                     "atol": SHARDED_ATOL},
+                            "int8_ring": "bitwise"},
+              "evaluate_s": eval_s, "metrics": metrics,
+              "launches": {k: launches[k] for k in SHARDED_KERNELS}})
+        del r_run, z
+    finally:
+        engine.BipartiteCSR = sparse.BipartiteCSR
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
 
@@ -2673,8 +2842,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     api_launches, api_eval_s = api_phase(torch, dev, train, test)
     torch.cuda.empty_cache()
-    tiered_launches = tiered_train(torch, dev, train, test, api_eval_s)
-    torch.cuda.empty_cache()
+    tiered_launches, graph = tiered_train(torch, dev, train, test,
+                                          api_eval_s)
+    sharded_launches = sharded_phase(torch, dev, train, test, graph)
+    del graph
+    _free(torch)
     with torch.no_grad():
         errs["sddmm"] = check_sddmm(torch, dev, rng)
     emit({"phase": "adversarial", "kernel": "sddmm",
@@ -2690,7 +2862,8 @@ def main() -> int:
              "coo": {k: coo_launches[k] for k in COO_KERNELS},
              "api": {k: api_launches[k] for k in API_KERNELS},
              "tiered_train": {k: tiered_launches[k]
-                              for k in TIERED_KERNELS}}
+                              for k in TIERED_KERNELS},
+             "sharded": {k: sharded_launches[k] for k in SHARDED_KERNELS}}
     emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -16,7 +16,6 @@ from repro_torch.api.spec import ExperimentSpec
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.data.synth import InteractionData
 from repro_torch.pipeline import build_pipeline
-from repro_torch.pipeline.engine import check_ported
 from repro_torch.runtime.loop import LoopConfig, LoopReport, run_training
 
 
@@ -54,7 +53,9 @@ class Run:
         or ``spec.loop.ckpt_dir``) the loop checkpoints periodically and
         resumes from the latest committed step; without one it runs
         in-memory.  Periodic held-out eval fires every
-        ``spec.loop.eval_every`` steps when the run has a holdout."""
+        ``spec.loop.eval_every`` steps when the run has a holdout.  On a
+        sharded run every rank calls it; rank 0 writes the checkpoints,
+        every leaf unsharded."""
         lc = self.spec.loop
         steps = lc.steps if steps is None else int(steps)
         ckpt_dir = ckpt_dir if ckpt_dir is not None else lc.ckpt_dir
@@ -65,13 +66,16 @@ class Run:
             max_steps=max_steps, step_deadline_s=lc.step_deadline_s,
             max_strays=lc.max_strays, async_ckpt=lc.async_ckpt,
             eval_every=lc.eval_every)
+        pipe = self.pipeline
         self.report = run_training(
-            cfg, self.state, self.pipeline.step_fn,
-            on_relayout=self.pipeline.on_relayout,
-            on_restore=self.pipeline.apply_plan,
-            eval_fn=self.pipeline.eval_fn,
+            cfg, self.state, pipe.step_fn,
+            on_relayout=pipe.on_relayout,
+            on_restore=pipe.restore_state,
+            eval_fn=pipe.eval_fn,
             start_step=self.step_count,
-            step_context=self.pipeline.step_context)
+            step_context=pipe.step_context,
+            ckpt_example=pipe.checkpoint_example(),
+            to_checkpoint=pipe.checkpoint_state, writer=pipe.is_writer)
         self.state = self.report.final_state
         self.step_count = max_steps
         self._recommender = None
@@ -81,9 +85,11 @@ class Run:
         """Position this run at the latest committed checkpoint: state
         restored onto its planned tiers, loader seeked so the next
         batch matches an uninterrupted run's (schedule-exact resume).  A
-        checkpoint the reference's ``Run`` wrote restores too."""
-        state, step = restore_checkpoint(ckpt_dir, self.pipeline.init_state())
-        self.state = self.pipeline.apply_plan(state)
+        checkpoint the reference's ``Run`` wrote restores too, and one of a
+        sharded run restores onto any shard count."""
+        state, step = restore_checkpoint(ckpt_dir,
+                                         self.pipeline.checkpoint_example())
+        self.state = self.pipeline.restore_state(state)
         self.pipeline.seek(step)
         self.step_count = step
         self._recommender = None
@@ -99,11 +105,13 @@ class Run:
 
     # ------------------------------------------------------------ eval
     def embeddings(self):
-        """Final (user, item) embeddings at the current state."""
+        """Final (user, item) embeddings at the current state (whole, on
+        every rank of a sharded run)."""
         return self.pipeline.embeddings(self.state)
 
     def evaluate(self) -> dict:
-        """One held-out streaming-eval sweep (recall/NDCG@k + MRR)."""
+        """One held-out streaming-eval sweep (recall/NDCG@k + MRR); every
+        rank of a sharded run returns the same metrics."""
         return self.pipeline.evaluate(self.state)
 
     # ------------------------------------------------------------ serving
@@ -140,21 +148,23 @@ class Run:
                                            exclude_seen=exclude_seen)
 
     def describe(self) -> str:
-        """The run's line, then its ``TrainPlan.describe()``."""
+        """The run's line, the shard plan's when there is one, then its
+        ``TrainPlan.describe()``."""
         d = self.train_data
-        return "\n".join([
-            f"Run[{self.spec.name}] arch={self.spec.model.arch} "
-            f"data={self.spec.data.source}:{self.spec.data.dataset} "
-            f"({d.n_users}U x {d.n_items}I, {d.n_edges} train edges)",
-            self.pipeline.plan.describe()])
+        lines = [f"Run[{self.spec.name}] arch={self.spec.model.arch} "
+                 f"data={self.spec.data.source}:{self.spec.data.dataset} "
+                 f"({d.n_users}U x {d.n_items}I, {d.n_edges} train edges)"]
+        if self.pipeline.shard is not None:
+            lines.append("  " + self.pipeline.shard.describe())
+        lines.append(self.pipeline.plan.describe())
+        return "\n".join(lines)
 
 
 def build(spec: ExperimentSpec, train: InteractionData | None = None,
           holdout: InteractionData | None = None, device="cuda") -> Run:
     """spec -> Run on ``device``.  Data comes from ``spec.data`` unless an
     explicit train (and optional holdout) InteractionData is passed in.  A
-    spec the port cannot run yet raises before any data is made."""
-    check_ported(spec.to_pipeline_config())
+    sharded spec needs one process per shard, each calling ``build``."""
     if train is None:
         train, holdout = load_data(spec.data)
     return Run(spec, train, holdout=holdout, device=device)

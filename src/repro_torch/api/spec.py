@@ -11,9 +11,7 @@ converge on the same object.  Every section, default and validation is
 the reference's, so ``to_dict()`` equals the reference's key for key and
 one JSON spec drives both packages.  ``repro_torch.api.build(spec)``
 turns it into a ``Run``; the device is an argument of ``build``, never a
-spec field.  What the port cannot run yet (the planner, sharding,
-compression) the pipeline refuses when it is built, naming the ROADMAP
-item.
+spec field.
 """
 from __future__ import annotations
 
@@ -70,10 +68,11 @@ class PlanCfg:
 
 @dataclasses.dataclass(frozen=True)
 class MeshCfg:
-    """Sharded execution (ROADMAP A10 in the port): mesh shape and
-    axis names, SpMM dispatch, and the banded-ring knob.  The default
-    ``shape=(1,)`` is the inert single-device plan — bit-identical to
-    the unsharded pipeline."""
+    """Sharded execution (``pipeline.shard.ShardPlan``): mesh shape and
+    axis names, SpMM dispatch, and the banded-ring knob.  A shape of P
+    shards runs one process per shard (e.g. under ``torchrun``).  The
+    default ``shape=(1,)`` is the inert single-device plan — bit-identical
+    to the unsharded pipeline."""
     shape: tuple[int, ...] = (1,)
     axes: tuple[str, ...] | None = None  # None -> auto axis names
     spmm: str | None = None          # None (auto: ring when P>1) | 'ring'
@@ -123,8 +122,7 @@ class CompressionCfg:
     ``state["comp"]``), capacity-tier embedding-table storage
     (``embed_store='int8'``: ~1/4 bytes, fp32 dequant-on-gather, and
     the planner prices the quantized footprint), and the ring-SpMM
-    payload rotation (``ring='int8'``; sharded execution, ROADMAP A10 in
-    the port).  The default is the identity:
+    payload rotation (``ring='int8'``).  The default is the identity:
     no compressor is built and training stays bit-identical to the
     pre-compression pipeline."""
     grads: str = "none"              # 'none' | 'int8' | 'topk'

@@ -68,13 +68,15 @@ def evaluate_embeddings(user_e, item_e, test_pos: list[np.ndarray], *,
                         seen_indptr=None, seen_items=None,
                         user_batch: int = 256, item_block: int = 1024,
                         impl: str | None = None,
-                        device=None) -> dict[str, float]:
+                        device=None, shard=None) -> dict[str, float]:
     """Held-out ranking evaluation through the streaming top-K path.
 
     Only users with at least one held-out item are scored (the others
     cannot affect any average), so eval cost scales with the test set,
     not the user catalogue.  ``seen_indptr``/``seen_items`` is the
     user-CSR of training interactions to exclude from the ranking.
+    ``shard`` (a ``pipeline.shard.ShardPlan``) splits each user batch over
+    the ranks; every rank returns the same metrics.
     """
     ks = tuple(ks) if ks is not None else (int(k),)
     width = max(ks)
@@ -85,5 +87,5 @@ def evaluate_embeddings(user_e, item_e, test_pos: list[np.ndarray], *,
     _, ids = streaming_topk(user_e, item_e, width, user_ids=eval_users,
                             seen_indptr=seen_indptr, seen_items=seen_items,
                             user_batch=user_batch, item_block=item_block,
-                            impl=impl, device=device)
+                            impl=impl, device=device, shard=shard)
     return ranking_metrics(ids, [test_pos[u] for u in eval_users], ks=ks)

@@ -23,6 +23,12 @@ ids the reference passes (each user batch padded with user 0 to the batch
 size; the last item block padded with item 0), so the facades' counters
 equal the reference's.
 
+A sharded sweep (``shard``, a ``pipeline.shard.ShardPlan`` with P > 1)
+pads each user batch to a multiple of P; each rank stages and merges its
+rows of every batch (block-major, as the reference's sharded sweep) and
+the merged rows are all-gathered, so every rank returns the unsharded
+sweep's ids and scores.
+
 Tie-breaking contract (as the reference's): results are ordered by
 (score desc, item id asc); scores equal to zero count as +0.0; slots
 with fewer than K scoreable candidates return id -1 with score -inf.
@@ -33,8 +39,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device, to_device
+from repro_torch.dist.collectives import all_gather_rows, rank_of
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _ref
 from repro_torch.memory.executor import HostResident
@@ -91,7 +99,7 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
                    user_batch: int = DEFAULT_USER_BATCH,
                    item_block: int = DEFAULT_ITEM_BLOCK,
                    impl: str | None = None, fused: bool | None = None,
-                   device=None):
+                   device=None, shard=None):
     """Top-K items per user without materializing the U×I score matrix.
 
     user_e, item_e: [U, D] / [I, D] tensors (on one device), numpy arrays
@@ -102,9 +110,13 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
       exclude, by global user id (numpy or tensors).  None -> nothing
       excluded.
     fused: None -> the fused kernel whenever the item table is on the
-      device, else the block-major sweep; True -> the fused kernel (a
-      host-resident item table raises); False -> the block-major sweep.
-      All routes give the same result.
+      device and the sweep is unsharded, else the block-major sweep; True
+      -> the fused kernel (a host-resident item table or a sharded sweep
+      raises); False -> the block-major sweep.  All routes give the same
+      result.
+    shard: a ``ShardPlan``; with P > 1 each of its ranks (all calling
+      together) merges its rows of each batch, and the results are
+      all-gathered.
     Returns (scores f32[n, k], ids i32[n, k]) numpy arrays, ordered by
     (score desc, id asc); invalid slots are (-inf, -1).
     """
@@ -130,15 +142,23 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
     validate_user_ids(user_ids, n_users)
     n_q = len(user_ids)
     k = int(k)
-    if fused and item_host is not None:
+    sharded = shard is not None and shard.is_sharded
+    fused_ok = item_host is None and not sharded
+    if fused and not fused_ok:
         raise ValueError(
-            "fused=True needs a device-resident item table (a host-demoted "
-            "table streams block-major)")
-    use_fused = item_host is None if fused is None else bool(fused)
+            "fused=True needs a device-resident item table and an "
+            "unsharded sweep (a host-demoted table streams block-major; a "
+            "sharded sweep merges per slice)")
+    use_fused = fused_ok if fused is None else bool(fused)
     if n_q == 0 or n_items == 0:
         return (np.full((n_q, k), NEG_INF, np.float32),
                 np.full((n_q, k), -1, np.int32))
     ub = int(min(user_batch, n_q))
+    group, rank, slab = None, 0, ub
+    if sharded:
+        ub = math.ceil(ub / shard.n_shards) * shard.n_shards
+        group = shard.process_group(dev)
+        rank, slab = rank_of(group), ub // shard.n_shards
     blk = int(min(item_block, n_items))
     n_blocks = math.ceil(n_items / blk)
     if seen_indptr is not None:
@@ -148,11 +168,17 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
 
     def stage_batch(lo):
         sel = users[lo:lo + ub]
+        if sharded:
+            # this rank's rows of the batch padded with user 0, as the
+            # reference's sharded batch
+            sel = F.pad(sel, (0, ub - len(sel)))[rank * slab:
+                                                 (rank + 1) * slab]
         if user_host is not None:
             # the reference gathers the batch padded with user 0
             sel_np = user_ids[lo:lo + ub]
             ue = user_host.take(np.pad(sel_np, (0, ub - len(sel_np))))
-            ue = ue[:len(sel_np)]
+            ue = ue[rank * slab:(rank + 1) * slab] if sharded \
+                else ue[:len(sel_np)]
         else:
             ue = _gather_rows(user_e, sel, impl)
         if seen_indptr is not None:
@@ -198,6 +224,16 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
                     bt[3], bt[4], scores,
                     block_ids.expand(bt[0].shape[0], blk), k)
         tops = [(bt[3], bt[4]) for bt in batches]
-    out_s = torch.cat([s for s, _ in tops]).cpu().numpy()
-    out_i = torch.cat([i for _, i in tops]).cpu().numpy()
-    return out_s, out_i
+    out_s = torch.cat([s for s, _ in tops])
+    out_i = torch.cat([i for _, i in tops])
+    if sharded:
+        # [P * batches * slab, k] in rank order -> batch order; only the
+        # last batch has padding rows, so the first n_q rows are the users'
+        p, nb = shard.n_shards, len(tops)
+
+        def unshard(t):
+            t = all_gather_rows(t, group).reshape(p, nb, slab, k)
+            return t.transpose(0, 1).reshape(nb * ub, k)[:n_q]
+
+        out_s, out_i = unshard(out_s), unshard(out_i)
+    return out_s.cpu().numpy(), out_i.cpu().numpy()

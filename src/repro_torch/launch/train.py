@@ -23,11 +23,17 @@ the planner's flags (``--memory-topology``, ``--placement-policy``,
 launcher) place the state on the tiers, and the compression flags
 (``--compress-grads``, ``--compress-frac``, ``--embed-store``) compress
 the gradients and the host-store tables.
-Sharding (``--mesh``, ``--spmm``, ``--ring-steps``, ``--compress-ring``)
-builds the same spec and then raises ``NotImplementedError`` naming
-ROADMAP A10, as do the legacy trainers (``--arch gcn-cora``: A11;
-``--arch deepfm|xdeepfm|dlrm_rm2``: A12).  Checkpoints default to
-``<tempdir>/repro_ckpt/<arch>``.
+Sharded execution (``--mesh``, ``--spmm``, ``--ring-steps``,
+``--compress-ring``) runs one process per shard, each launched with the
+same flags; ``torchrun`` opens the process group (gloo on the CPU, NCCL
+on cards) and only rank 0 prints and writes checkpoints:
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --preset lightgcn-smoke --mesh 4
+
+The legacy trainers raise ``NotImplementedError`` naming their ROADMAP
+item (``--arch gcn-cora``: A11; ``--arch deepfm|xdeepfm|dlrm_rm2``: A12).
+Checkpoints default to ``<tempdir>/repro_ckpt/<arch>``.
 """
 from __future__ import annotations
 
@@ -40,20 +46,11 @@ import time
 from repro_torch import configs as config_registry
 from repro_torch.api import (DataCfg, Experiment, ExperimentSpec, LoopCfg,
                              ModelCfg, PlanCfg, get_preset)
+from repro_torch.pipeline.shard import parse_mesh
 
 PIPELINE_ARCHS = ("lightgcn", "ngcf", "gcn")
 
 DEFAULT_CKPT_ROOT = os.path.join(tempfile.gettempdir(), "repro_ckpt")
-
-
-def parse_mesh(text: str) -> tuple[int, ...]:
-    """'4' -> (4,); '2x2' -> (2, 2) — the --mesh CLI syntax (the
-    reference's ``pipeline/shard.py::parse_mesh``)."""
-    try:
-        return tuple(int(t) for t in text.lower().split("x"))
-    except ValueError:
-        raise ValueError(f"bad mesh spec {text!r}; expected e.g. '4' or "
-                         "'2x2'") from None
 
 
 def default_spec() -> ExperimentSpec:
@@ -96,8 +93,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "0 = final eval only")
     ap.add_argument("--eval-k", type=int)
     ap.add_argument("--mesh", help="mesh shape for sharded execution, "
-                    "e.g. '4' or '2x2' (spec override mesh.shape; sharded "
-                    "execution is ROADMAP A10 in the port)")
+                    "e.g. '4' or '2x2' (spec override mesh.shape); one "
+                    "process per shard, e.g. under torchrun "
+                    "--nproc-per-node 4")
     ap.add_argument("--ring-steps", type=int,
                     help="banded ring: visit only this many source owners "
                          "per SpMM (mesh.ring_steps; 0 = full ring)")
@@ -219,23 +217,25 @@ def spec_from_args(args: argparse.Namespace) -> ExperimentSpec:
 def run_experiment(spec: ExperimentSpec, device="cuda"):
     """One spec, end to end on ``device``: build -> fit (fault-tolerant
     loop, resumes from the spec's checkpoint dir) -> final held-out
-    streaming eval."""
+    streaming eval.  On a sharded run every rank runs this and rank 0
+    prints."""
     run = Experiment(spec).build(device=device)
-    print(run.describe())
+    pipe = run.pipeline
+    say = print if pipe.is_writer else (lambda *a, **kw: None)
+    say(run.describe())
     t0 = time.perf_counter()
     report = run.fit()
     dt = time.perf_counter() - t0
-    pipe = run.pipeline
-    print(f"[{spec.model.arch}] {report.steps_run} steps in {dt:.1f}s "
-          f"loss {_loss_span(report)} "
-          f"(microbatch={pipe.plan.microbatch}, "
-          f"accum={pipe.plan.microbatches_for_epoch(pipe.loader.state.epoch)}x, "
-          f"resumed_from={report.resumed_from})")
+    say(f"[{spec.model.arch}] {report.steps_run} steps in {dt:.1f}s "
+        f"loss {_loss_span(report)} "
+        f"(microbatch={pipe.plan.microbatch}, "
+        f"accum={pipe.plan.microbatches_for_epoch(pipe.loader.state.epoch)}x, "
+        f"resumed_from={report.resumed_from})")
     for step, m in report.eval_history:
-        print(f"  eval@{step}: {_fmt_metrics(m)}")
+        say(f"  eval@{step}: {_fmt_metrics(m)}")
     if run.holdout is not None:
-        print(f"[{spec.model.arch}] final held-out: "
-              f"{_fmt_metrics(run.evaluate())}")
+        metrics = run.evaluate()
+        say(f"[{spec.model.arch}] final held-out: {_fmt_metrics(metrics)}")
     return report
 
 

@@ -1,5 +1,5 @@
 """Compression primitives for the slow links (the port of
-``repro/optim/compression.py``, single-device part).
+``repro/optim/compression.py``).
 
 Every byte moved over a capacity-tier link is on the paper's critical
 path, so gradients shrink two ways, both with error feedback so the
@@ -9,11 +9,11 @@ compression error is carried, not lost:
   * top-k magnitude sparsification (k values + their indices).
 
 Consumers: ``pipeline.compress.GradCompressor`` (the per-step gradient
-combine, ``compression.grads``) and ``memory.executor.TieredExecutor``
-(int8 storage of capacity-tier tables, ``compression.embed_store``).  The
-reference's collectives (``compressed_psum_int8``,
-``psum_int8_with_residual``, ``topk_allgather_sum``) need a mesh: ROADMAP
-A10.
+combine, ``compression.grads``; on a sharded run through the collectives
+``psum_int8_with_residual`` and ``topk_allgather_sum`` over the process
+group), ``memory.executor.TieredExecutor`` (int8 storage of capacity-tier
+tables, ``compression.embed_store``) and ``dist.ring_spmm`` (the int8 ring
+payload, ``compression.ring``).
 
 Randomness: the reference draws from ``jax.random`` keys, which torch
 cannot reproduce, so stochastic rounding here takes a ``torch.Generator``
@@ -27,11 +27,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.dist.collectives import all_gather_rows
 
 __all__ = [
-    "quantize_int8", "dequantize_int8", "topk_sparsify", "topk_densify",
+    "quantize_int8", "dequantize_int8", "compressed_psum_int8",
+    "psum_int8_with_residual", "topk_sparsify", "topk_densify",
+    "topk_allgather_sum",
     "quantize_rows_int8", "dequantize_rows_int8",
     "quantize_rows_int8_tensor", "ErrorFeedback", "make_topk_compressor",
     "make_int8_compressor", "wire_bytes",
@@ -43,17 +47,56 @@ def quantize_int8(g: torch.Tensor, generator: torch.Generator):
     rounds up with probability equal to its fractional part, drawn from
     ``generator`` (which must live on ``g``'s device)."""
     scale = g.abs().max() / 127.0 + 1e-12
-    x = g / scale
-    lo = torch.floor(x)
-    p = x - lo
-    r = torch.rand(g.shape, generator=generator, device=g.device,
-                   dtype=g.dtype)
-    q = (lo + (r < p)).to(torch.int8)
-    return q, scale
+    return _round_stochastic(g, scale, generator).to(torch.int8), scale
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def _round_stochastic(g, scale, generator):
+    """floor(g / scale) plus one with probability of the fraction."""
+    x = g / scale
+    lo = torch.floor(x)
+    r = torch.rand(g.shape, generator=generator, device=g.device,
+                   dtype=g.dtype)
+    return lo + (r < x - lo)
+
+
+def _shared_scale(g, group):
+    """max|g| / 127 + 1e-12, max-reduced over the group so every
+    participant dequantizes alike."""
+    scale = (g.abs().max() / 127.0 + 1e-12).reshape(1)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    return scale
+
+
+def compressed_psum_int8(g: torch.Tensor, generator: torch.Generator,
+                         group) -> torch.Tensor:
+    """Quantize -> all-reduce (int32 accumulate) -> dequantize, over
+    ``group``.  Scales are max-reduced so every participant dequantizes
+    consistently."""
+    return psum_int8_with_residual(g, generator, group)[0]
+
+
+def psum_int8_with_residual(g: torch.Tensor, generator: torch.Generator,
+                            group):
+    """``compressed_psum_int8`` that also returns the *local* residual
+    ``g - dequant(q)`` — the error-feedback carry for the next step."""
+    scale = _shared_scale(g, group)
+    q = _round_stochastic(g, scale, generator)
+    total = q.to(torch.int8).to(torch.int32)
+    dist.all_reduce(total, group=group)
+    return total.to(torch.float32) * scale, g - q * scale
+
+
+def topk_allgather_sum(vals: torch.Tensor, idx: torch.Tensor, shape,
+                       group) -> torch.Tensor:
+    """The top-k exchange: all-gather every participant's (values,
+    indices) — 2k entries per participant on the wire instead of the dense
+    tensor — and densify-sum them, colliding indices accumulating."""
+    return topk_densify(all_gather_rows(vals, group),
+                        all_gather_rows(idx, group), shape)
 
 
 def topk_sparsify(g: torch.Tensor, k: int):

@@ -23,14 +23,21 @@ schedule, placement plan and loader, and exposes the loop-consumable
   kernel-routed models — registry forwards aggregate through the CUDA
                          kernels (``pipeline.sparse``), whose backwards
                          are kernels too;
-  EdgeLoader           — deterministic, resumable microbatch stream.
+  EdgeLoader           — deterministic, resumable microbatch stream;
 
-The step runs eagerly; there is nothing to compile.  Mesh execution and
-the compressed ring payload (ROADMAP A10) are not ported: a config that
-asks for them raises ``NotImplementedError`` naming the item, so nothing
-is ignored silently, and ``shard`` is None.  The state is ``{"params",
-"opt"}`` (plus ``"comp"`` under gradient compression) of nested dicts and
-lists of tensors, as the reference's pytrees.
+ShardPlan (``pipeline.shard``) — sharded execution, one process per
+                         shard: row-sharded tables and Adam moments, the
+                         ring SpMM (``dist.ring_spmm``), every rank's
+                         slice of each global chunk, the loss and the
+                         replicated leaves' gradients all-reduced, the
+                         row-sharded leaves' reduce-scattered to their
+                         owners, each step under ``dist.hints``.
+
+The step runs eagerly; there is nothing to compile.  The state is
+``{"params", "opt"}`` (plus ``"comp"`` under gradient compression) of
+nested dicts and lists of tensors, as the reference's pytrees; on a
+sharded run each rank holds its row block of every leaf that has >= 2
+dims and a leading dim divisible by P, and the whole of every other leaf.
 """
 from __future__ import annotations
 
@@ -46,19 +53,24 @@ from repro_torch.core.large_batch import LargeBatchSchedule
 from repro_torch.data.loader import EdgeLoader, LoaderState
 from repro_torch.data.synth import InteractionData, group_by_user
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import (all_gather_rows, all_reduce_,
+                                          gather_rows, rank_of)
+from repro_torch.dist.hints import sharding_hints
 from repro_torch.eval.metrics import evaluate_embeddings
 from repro_torch.memory import TieredExecutor, get_topology
 from repro_torch.optim import adam, sgd
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.pipeline.plan import build_train_plan, derive_eval_batch
 from repro_torch.pipeline.registry import get_model
+from repro_torch.pipeline.shard import ShardPlan
 from repro_torch.pipeline.sparse import BipartiteCSR
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """The reference's fields and defaults.  ``impl`` is the port's kernel
-    dispatch (None: by device, 'torch': the plain versions, 'cuda')."""
+    dispatch (None: by device, 'torch': the plain versions, 'cuda'), or
+    'ring' to force the ring aggregation on one shard."""
     arch: str = "lightgcn"
     embed_dim: int = 32
     n_layers: int = 2
@@ -66,48 +78,31 @@ class PipelineConfig:
     base_lr: float = 1e-3
     base_batch: int = 256
     target_batch: int = 2048
-    microbatch: int | None = None      # None -> derived from HBM headroom
+    microbatch: int | None = None      # None -> derived from HBM headroom;
+    #                                    per shard when the mesh has P > 1
     warmup_epochs: int = 2
     lr_scaling: str = "linear"         # 'linear' | 'sqrt' (paper ablation)
     l2: float = 1e-4
     hbm_budget: int | None = None      # fast-tier budget override (bytes)
-    impl: str | None = None            # None | 'torch' | 'cuda'
+    impl: str | None = None            # None | 'torch' | 'cuda' | 'ring'
     hadamard: str = "auto"             # NGCF route: 'auto' | 'fused' | 'composed'
     seed: int = 0
     memory_topology: str = "tpu-hbm-host"     # repro_torch.memory
     memory_policy: str = "greedy"
     memory_capacity: dict | None = None
     memory_pins: dict | None = None
-    mesh_shape: tuple[int, ...] = (1,)        # sharded execution (A10)
-    mesh_axes: tuple[str, ...] | None = None
-    spmm: str | None = None
-    ring_steps: int | None = None
+    mesh_shape: tuple[int, ...] = (1,)        # sharded execution
+    mesh_axes: tuple[str, ...] | None = None  # None -> auto axis names
+    spmm: str | None = None                   # None (auto) | 'ring'
+    ring_steps: int | None = None             # banded ring (n_steps < P)
     grad_compression: str = "none"            # 'none' | 'int8' | 'topk'
     compression_frac: float = 0.01
     compression_ef: bool = True
     embed_store: str = "fp32"                 # 'fp32' | 'int8' slow tier
-    ring_compression: str = "none"            # ring payload (A10)
+    ring_compression: str = "none"            # 'none' | 'int8' ring payload
     eval_k: int = 20
     eval_user_batch: int | None = None  # None -> derived from HBM headroom
     eval_item_block: int = 1024
-
-
-def check_ported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` naming the options ``cfg`` sets that
-    the port cannot run yet: sharded execution and its compressed ring
-    payload (ROADMAP A10)."""
-    asked = [name for name, on in {
-        "mesh_shape": tuple(cfg.mesh_shape) != (1,),
-        "mesh_axes": cfg.mesh_axes is not None,
-        "spmm": cfg.spmm is not None,
-        "ring_steps": cfg.ring_steps is not None,
-        "impl='ring'": cfg.impl == "ring",
-        "ring_compression": cfg.ring_compression != "none",
-    }.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"PipelineConfig options of sharded execution, which the port "
-            f"does not have yet (ROADMAP A10): {asked}")
 
 
 class Pipeline:
@@ -115,18 +110,34 @@ class Pipeline:
 
     def __init__(self, cfg: PipelineConfig, train: InteractionData,
                  holdout: InteractionData | None = None, device="cuda"):
-        check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec = get_model(cfg.arch)
-        self.shard = None                  # one card: no mesh (A10)
+        # one ShardPlan flows through every layer below; None = the inert
+        # single-device path.  impl='ring' forces the ring route on one
+        # shard when no mesh is configured
+        self.shard = ShardPlan.from_config(
+            cfg.mesh_shape, cfg.mesh_axes, cfg.spmm, cfg.ring_steps,
+            ring_quant=(cfg.ring_compression == "int8"))
+        if cfg.impl == "ring" and self.shard is None:
+            self.shard = ShardPlan(spmm="ring")
+        # raises unless the world size is the shard count
+        self.group = self.shard.process_group(self.device) \
+            if self.shard is not None else None
+        self.rank = rank_of(self.group)
+        if self.group is not None and self.device.type == "cuda" \
+                and self.device.index is None:
+            # each rank's own card (torchrun's LOCAL_RANK, set as current)
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        kernel_impl = None if cfg.impl == "ring" else cfg.impl
         self.g = BipartiteCSR(train.user, train.item, train.n_users,
                               train.n_items, device=self.device,
-                              impl=cfg.impl, hadamard=cfg.hadamard)
+                              impl=kernel_impl, hadamard=cfg.hadamard,
+                              shard=self.shard)
         # the kernel route the plan names: the port's own, never the
         # reference's pallas/xla
-        impl = cfg.impl or ("cuda" if self.device.type == "cuda"
-                            else "torch")
+        impl = kernel_impl or ("cuda" if self.device.type == "cuda"
+                               else "torch")
 
         params = self.spec.init(cfg.seed, self.g.n_users, self.g.n_items,
                                 cfg.embed_dim, cfg.n_layers,
@@ -145,6 +156,7 @@ class Pipeline:
                                      self.g, cfg.n_layers, cfg.embed_dim,
                                      sched, impl, hbm_budget=cfg.hbm_budget,
                                      microbatch=cfg.microbatch,
+                                     shard=self.shard,
                                      topology=self.topology,
                                      policy=cfg.memory_policy,
                                      pins=cfg.memory_pins,
@@ -160,11 +172,17 @@ class Pipeline:
             from repro_torch.pipeline.compress import GradCompressor
             self.compressor = GradCompressor(
                 cfg.grad_compression, cfg.compression_frac,
-                cfg.compression_ef)
+                cfg.compression_ef, shard=self.shard, group=self.group)
         state0 = {"params": params, "opt": opt_state}
         if self.compressor is not None:
             state0["comp"] = self.compressor.init_state(params, cfg.seed)
-        self._state0 = self.apply_plan(state0)
+        # the whole state's shapes and dtypes, without its storage: what a
+        # row-sharded leaf gathers to, and the checkpoint's example
+        self._full = tree_map(
+            lambda t: torch.empty((), dtype=t.dtype,
+                                  device=t.device).expand(t.shape), state0)
+        self._state0 = self.apply_plan(self.shard_state(state0))
+        del state0, params, opt_state
 
         self.loader = EdgeLoader(train.user, train.item,
                                  batch=self.plan.global_microbatch,
@@ -180,8 +198,60 @@ class Pipeline:
         """The placed initial state from the seeded init.  To start from
         other params — e.g. the reference's, carried over by
         ``convert.params_from_jax`` — pair them with ``opt.init(params)``
-        and place them with ``apply_plan``."""
+        and place them with ``restore_state``."""
         return self._state0
+
+    def _sharded(self, full_leaf) -> bool:
+        return self.shard is not None \
+            and self.shard.shard_divisor(tuple(full_leaf.shape)) > 1
+
+    def shard_state(self, tree):
+        """This rank's part of a whole state (or of a subtree shaped like
+        ``params``): ``ShardPlan.shard_state``; identity without a plan."""
+        if self.shard is None:
+            return tree
+        return self.shard.shard_state(tree, self.rank)
+
+    def _unshard(self, tree, full):
+        return tree_map(lambda t, ex: all_gather_rows(t, self.group)
+                        if self._sharded(ex) else t, tree, full)
+
+    def unshard_state(self, state):
+        """The whole state from every rank's part (a collective: every rank
+        calls it); identity without a sharded plan."""
+        return self._unshard(state, self._full)
+
+    def _gather_params(self, params):
+        """Whole params for the forward, differentiably: row-sharded leaves
+        all-gathered (their gradients reduce-scatter to the owners)."""
+        return tree_map(lambda t, ex: gather_rows(t, self.group)
+                        if self._sharded(ex) else t,
+                        params, self._full["params"])
+
+    def restore_state(self, state):
+        """A whole state (a restored checkpoint, or params from elsewhere
+        with their optimizer state) -> this rank's part, placed on its
+        tiers.  A checkpoint restores onto any shard count."""
+        return self.apply_plan(self.shard_state(state))
+
+    def checkpoint_example(self):
+        """The tree a checkpoint restores into: the initial state, or on a
+        sharded run the whole state's shapes, dtypes and devices."""
+        if self.shard is None or not self.shard.is_sharded:
+            return self._state0
+        return self._full
+
+    def checkpoint_state(self, state):
+        """What a checkpoint writes: the whole state, every leaf unsharded
+        (a collective on a sharded run; demoted leaves fetched first)."""
+        if self.shard is None or not self.shard.is_sharded:
+            return state
+        return self.unshard_state(self.executor.fetch(state))
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank writes checkpoints and logs (rank 0)."""
+        return self.rank == 0
 
     def apply_plan(self, state):
         """Place every state leaf onto its planned memory tier (used on
@@ -194,9 +264,12 @@ class Pipeline:
 
     def step_context(self):
         """The context one engine step runs under; the loop enters it
-        around every step it drives.  Nothing on one card (the reference's
-        sharding hints are ROADMAP A10)."""
-        return contextlib.nullcontext()
+        around every step it drives: the dp axis and the process group as
+        sharding hints (``dist.hints``) on a sharded run, nothing on an
+        unsharded one."""
+        if self.shard is None:
+            return contextlib.nullcontext()
+        return sharding_hints(dp=self.shard.dp, group=self.group)
 
     @property
     def sched(self) -> LargeBatchSchedule:
@@ -208,7 +281,9 @@ class Pipeline:
 
     def lr_for_epoch(self, epoch: int) -> float:
         """LR scaled to the batch actually run this epoch: the schedule's
-        batch rounded up to whole microbatches."""
+        batch rounded up to whole global microbatches (every shard's
+        samples count), so a sharded run scales as the single-device run
+        with the same global batch."""
         actual = self.plan.microbatches_for_epoch(epoch) \
             * self.plan.global_microbatch
         return self.plan.sched.scaled_lr(actual)
@@ -231,13 +306,28 @@ class Pipeline:
         ue, ie = self.spec.forward(params, self.g, self.cfg.n_layers)
         return bpr.bpr_loss(ue, ie, users, pos, neg, l2=self.cfg.l2)
 
-    def value_and_grad(self, params, users, pos, neg):
+    def value_and_grad(self, params, users, pos, neg, weight=None):
         """(loss, grads) of one microbatch; ``grads`` has ``params``'
-        structure.  The params are not modified."""
+        structure.  The params are not modified.  On a sharded run the
+        loss is this rank's slice's, times ``weight`` (slice / batch),
+        taken through the whole params (``_gather_params``): a row-sharded
+        leaf's gradient arrives reduce-scattered, summed over the ranks;
+        a replicated leaf's is this rank's part alone."""
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss = self.loss(live, self._batch(users), self._batch(pos),
-                             self._batch(neg))
+            if weight is None:
+                loss = self.loss(live, self._batch(users), self._batch(pos),
+                                 self._batch(neg))
+            elif len(users):
+                loss = self.loss(self._gather_params(live),
+                                 self._batch(users), self._batch(pos),
+                                 self._batch(neg)) * weight
+            else:
+                # a rank with no rows still runs the forward and backward:
+                # their collectives need every rank
+                ue, ie = self.spec.forward(self._gather_params(live), self.g,
+                                           self.cfg.n_layers)
+                loss = (ue.sum() + ie.sum()) * 0.0
             grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
         return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -246,7 +336,13 @@ class Pipeline:
 
         Per-chunk mean-loss gradients are combined weighted by chunk size,
         so the result equals the full-batch gradient even when the batch
-        is not a microbatch multiple.  Returns (mean_loss, grads)."""
+        is not a microbatch multiple.  Returns (mean_loss, grads).
+
+        A sharded run chunks at the global microbatch; each rank takes its
+        rows of each chunk (``ShardPlan.shard_batch``) and weights its loss
+        by its rows over the batch's, then the loss and the replicated
+        leaves' gradients are all-reduced (the row-sharded leaves' were
+        reduce-scattered in the backward)."""
         mu = self.plan.global_microbatch
         n = len(users)
         k = max(1, math.ceil(n / mu))
@@ -254,13 +350,24 @@ class Pipeline:
         acc = None
         for c in range(k):
             sl = slice(c * mu, min((c + 1) * mu, n))
-            w = (sl.stop - sl.start) / n
-            loss, grads = self.value_and_grad(params, users[sl], pos[sl],
-                                              neg[sl])
-            wl = loss * w
-            wg = tree_map(lambda t: t * w, grads)
+            if self.shard is None:
+                w = (sl.stop - sl.start) / n
+                loss, grads = self.value_and_grad(params, users[sl],
+                                                  pos[sl], neg[sl])
+                wl = loss * w
+                wg = tree_map(lambda t: t * w, grads)
+            else:
+                u, p, ng = self.shard.shard_batch(users[sl], pos[sl],
+                                                  neg[sl], rank=self.rank)
+                wl, wg = self.value_and_grad(params, u, p, ng,
+                                             weight=len(u) / n)
             loss_sum = wl if loss_sum is None else loss_sum + wl
             acc = wg if acc is None else tree_map(torch.add, acc, wg)
+        if self.shard is not None:
+            all_reduce_(loss_sum, self.group)
+            tree_map(lambda t, ex: t if self._sharded(ex)
+                     else all_reduce_(t, self.group),
+                     acc, self._full["params"])
         return float(loss_sum), acc
 
     def _next_target_batch(self, k: int, step: int):
@@ -327,7 +434,11 @@ class Pipeline:
         out = {}
         with torch.no_grad():
             if self.compressor is not None:
+                # the reference compresses shares of the whole combined
+                # gradient, so a sharded run gathers it first
+                grads = self._unshard(grads, self._full["params"])
                 grads, out["comp"] = self.compressor(grads, state["comp"])
+                grads = self.shard_state(grads)
             out["params"], out["opt"] = self.opt.update(
                 grads, state["opt"], state["params"], lr=lr)
         self._next_step = step + 1
@@ -335,14 +446,17 @@ class Pipeline:
 
     def on_relayout(self, state):
         """The loop's straggler escalation: re-run the planner over the
-        current tensor set (the microbatch kept) and re-place the state."""
+        current tensor set (the microbatch kept) and re-place the state.
+        A sharded run re-plans per shard over the whole leaves' shapes."""
         cfg = self.cfg
+        full = state if self.shard is None else self._full
         self.plan = build_train_plan(
-            cfg.arch, self.spec, state["params"], state["opt"], self.g,
+            cfg.arch, self.spec, full["params"], full["opt"], self.g,
             cfg.n_layers, cfg.embed_dim, self.sched, self.plan.impl,
             hbm_budget=cfg.hbm_budget, microbatch=self.plan.microbatch,
-            topology=self.topology, policy=cfg.memory_policy,
-            pins=cfg.memory_pins, embed_store=cfg.embed_store)
+            shard=self.shard, topology=self.topology,
+            policy=cfg.memory_policy, pins=cfg.memory_pins,
+            embed_store=cfg.embed_store)
         self.executor = TieredExecutor(self.plan.plan,
                                        embed_store=cfg.embed_store,
                                        device=self.device)
@@ -351,9 +465,11 @@ class Pipeline:
     # ---------------------------------------------------------------- eval
     def embeddings(self, state):
         """Final (user, item) embeddings for evaluation, from the device
-        copies of any demoted leaves (``executor.fetch``)."""
+        copies of any demoted leaves (``executor.fetch``); on a sharded run
+        the whole embeddings on every rank (a collective)."""
         params = self.executor.fetch(state)["params"]
         with torch.no_grad():
+            params = self._unshard(params, self._full["params"])
             return self.spec.forward(params, self.g, self.cfg.n_layers)
 
     def attach_holdout(self, holdout: InteractionData) -> None:
@@ -389,7 +505,7 @@ class Pipeline:
             seen_indptr=indptr, seen_items=items,
             user_batch=self.eval_user_batch(),
             item_block=self.cfg.eval_item_block, impl=self.g.impl,
-            device=self.device)
+            device=self.device, shard=self.shard)
 
 
 def build_pipeline(cfg: PipelineConfig, train: InteractionData,

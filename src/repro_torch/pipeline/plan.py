@@ -8,9 +8,11 @@ microbatches.  ``build_train_plan`` profiles the run's actual tensor set
 (every params/optimizer leaf by its real bytes, the CSR adjacency, and —
 only for models that form them — the per-layer edge-message matrices),
 runs the selected ``repro_torch.memory`` placement policy over the
-selected ``TierTopology``, and derives the microbatch.  The port runs on
-one card, so the plan has one shard; the planner's numbers equal the
-reference's on the same state.
+selected ``TierTopology``, and derives the microbatch.  Budgets are per
+tier and, under a ``ShardPlan``, per shard: the profiles describe one
+rank's part (a row-sharded leaf counts 1/P, the ring buckets 1/P, the
+materialised messages 1/P) and the derived microbatch is the per-shard
+one.  The planner's numbers equal the reference's on the same state.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from repro_torch.optim.optimizers import tree_paths
 
 
 def _leaf_profiles(tree, prefix: str, reads: float, writes: float,
+                   shard=None,
                    embed_store: str = "fp32") -> list[AccessProfile]:
     """One AccessProfile per leaf with bytes, named ``prefix`` + the leaf's
     ``jax.tree_util.keystr`` path (``params['user_embed']``,
     ``opt['m']['w1'][0]``, ``opt['t']``), as the reference names them:
-    pins match these names by substring."""
+    pins match these names by substring.  ``tree`` holds whole leaves;
+    under ``shard`` each counts its bytes per shard."""
     out = []
     for path, leaf in tree_paths(tree):
         if not isinstance(leaf, torch.Tensor):
@@ -40,6 +44,8 @@ def _leaf_profiles(tree, prefix: str, reads: float, writes: float,
         nbytes = leaf.numel() * itemsize
         if nbytes == 0:
             continue
+        if shard is not None:
+            nbytes //= shard.shard_divisor(tuple(leaf.shape))
         row = (leaf.shape[-1] if leaf.dim() else 1) * itemsize
         # int8 capacity-tier storage: 2-D fp32 params tables carry their
         # quantized footprint (1 B/element + one fp32 scale per row) —
@@ -56,30 +62,41 @@ def _leaf_profiles(tree, prefix: str, reads: float, writes: float,
 
 
 def profiles_from_state(params, opt_state, g, n_layers: int, spec,
-                        embed_dim: int,
+                        embed_dim: int, shard=None,
                         embed_store: str = "fp32") -> list[AccessProfile]:
     """AccessProfiles over the run's actual tensor set (paper §2.1 memory
-    model, measured from the live state instead of assumed shapes)."""
+    model, measured from the live state instead of assumed shapes).  With
+    a live ``ShardPlan`` every profile describes one shard's part."""
+    p = shard.n_shards if shard is not None else 1
     profs = []
     # embedding tables + weights: read every layer fwd+bwd, written once
     profs += _leaf_profiles(params, "params", reads=2.0 * n_layers,
-                            writes=1.0, embed_store=embed_store)
+                            writes=1.0, shard=shard,
+                            embed_store=embed_store)
     # optimizer state: one read + one write per update
-    profs += _leaf_profiles(opt_state, "opt", reads=1.0, writes=1.0)
+    profs += _leaf_profiles(opt_state, "opt", reads=1.0, writes=1.0,
+                            shard=shard)
     # adjacency: read-only, tiny access granularity (the reference's byte
-    # count, BipartiteCSR.graph_nbytes)
-    profs.append(AccessProfile("graph/csr", g.graph_nbytes(),
+    # count, BipartiteCSR.graph_nbytes).  Per shard: the CSR stays whole
+    # (edge aggregations and evaluation read it) while the ring buckets
+    # are dst-sharded at 1/P each
+    if shard is None:
+        gbytes = g.graph_nbytes()
+    else:
+        gbytes = g.csr_nbytes() + max(g.ring_nbytes() // p, 1)
+    profs.append(AccessProfile("graph/csr", gbytes,
                                reads_per_step=2.0 * n_layers,
                                writes_per_step=0.0, access_size=8))
     if spec.messages_materialized(g):
         # per-layer messages are layer-input wide ([E, embed_dim]) even
-        # when the model concatenates layer outputs; the fused Hadamard
-        # route never forms them: no profile, and the microbatch derives
-        # against the reclaimed budget
+        # when the model concatenates layer outputs; a shard forms its
+        # edge partition's share.  The fused Hadamard route never forms
+        # them: no profile, and the microbatch derives against the
+        # reclaimed budget
         row = embed_dim * 4
         for l in range(n_layers):
             profs.append(AccessProfile(
-                f"messages_l{l}", max(g.n_edges * row, row),
+                f"messages_l{l}", max(g.n_edges * row // p, row),
                 reads_per_step=2.0, writes_per_step=2.0, access_size=row))
     return profs
 
@@ -150,17 +167,19 @@ def serving_profiles(user_nbytes: int, item_nbytes: int, row: int,
 class TrainPlan:
     """Everything the engine needs to run one training configuration.
 
-    ``impl`` names the port's kernel route (``torch`` or ``cuda``).  The
-    port runs one shard, so ``shards`` is 1 and ``global_microbatch`` is
-    the microbatch; ``hbm_budget`` is the fast-tier budget and the full
+    ``impl`` names the port's kernel route (``torch`` or ``cuda``).
+    ``microbatch`` is the per-shard microbatch: each of the ``shards``
+    ranks runs that many samples per accumulation chunk, so the global
+    batch is ``shards x microbatch x accum`` (``global_microbatch`` per
+    chunk).  ``hbm_budget`` is the fast-tier budget (per shard); the full
     per-tier budgets live on ``plan.budgets``."""
     arch: str
     plan: Plan                     # tier placement over the tensor set
     sched: LargeBatchSchedule
-    microbatch: int
+    microbatch: int                # per shard
     impl: str                      # kernel route ('torch' | 'cuda')
-    hbm_budget: int                # fast-tier budget
-    shards: int = 1
+    hbm_budget: int                # fast-tier budget, per shard
+    shards: int = 1                # mesh size P
 
     @property
     def global_microbatch(self) -> int:
@@ -206,6 +225,7 @@ def build_train_plan(arch: str, spec, params, opt_state, g, n_layers: int,
                      embed_dim: int, sched: LargeBatchSchedule, impl: str,
                      hbm_budget: int | None = None,
                      microbatch: int | None = None,
+                     shard=None,
                      topology: "str | object" = "tpu-hbm-host",
                      policy: str = "greedy",
                      pins: dict | None = None,
@@ -213,20 +233,25 @@ def build_train_plan(arch: str, spec, params, opt_state, g, n_layers: int,
     """Profile -> place -> derive the microbatch.  ``topology`` names a
     registered ``TierTopology`` (or is one); ``policy`` names a registered
     placement policy; ``pins`` force tensors onto tiers by (sub)name.
-    ``hbm_budget`` overrides the fast tier's capacity."""
+    ``hbm_budget`` overrides the fast tier's capacity; all budgets are per
+    shard, and with a ``ShardPlan`` the derived microbatch is the
+    per-shard one."""
     topo = get_topology(topology)
     budgets = topo.capacities()
     if hbm_budget is not None:
         budgets[topo.fast.name] = int(hbm_budget)
     budget = budgets[topo.fast.name]
     profs = profiles_from_state(params, opt_state, g, n_layers, spec,
-                                embed_dim, embed_store=embed_store)
+                                embed_dim, shard=shard,
+                                embed_store=embed_store)
     plan = get_policy(policy)(profs, topo, budgets=budgets, pins=pins)
+    shards = shard.n_shards if shard is not None else 1
     if microbatch is None:
         microbatch = derive_microbatch(budget - plan.hbm_used,
                                        spec.out_dim(embed_dim, n_layers),
-                                       max(1, sched.target_batch))
-    return TrainPlan(arch, plan, sched, int(microbatch), impl, budget)
+                                       max(1, sched.target_batch // shards))
+    return TrainPlan(arch, plan, sched, int(microbatch), impl, budget,
+                     shards=shards)
 
 
 # ---------------------------------------------------------------- placement

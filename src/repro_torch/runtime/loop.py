@@ -56,7 +56,10 @@ def run_training(cfg: LoopConfig, init_state: Any,
                  on_restore: Callable[[Any], Any] | None = None,
                  eval_fn: Callable[[Any, int], dict] | None = None,
                  start_step: int = 0,
-                 step_context: Callable[[], Any] | None = None) -> LoopReport:
+                 step_context: Callable[[], Any] | None = None,
+                 ckpt_example: Any = None,
+                 to_checkpoint: Callable[[Any], Any] | None = None,
+                 writer: bool = True) -> LoopReport:
     """step_fn(state, step) -> (state, loss).  Resumes if a checkpoint
     exists (``on_restore`` post-processes the restored state — e.g.
     re-applying memory-tier placements that raw checkpoint leaves lose);
@@ -68,13 +71,19 @@ def run_training(cfg: LoopConfig, init_state: Any,
     trained that far (``repro_torch.api.Run`` continuing in memory); a
     restored checkpoint overrides it.  ``step_context`` (zero-arg, returns
     a context manager) is entered around every step the loop drives
-    (``Pipeline.step_context``: a no-op on one card until sharded
-    execution, ROADMAP A10, gives it a mesh)."""
+    (``Pipeline.step_context``: the sharding hints of a sharded run).
+
+    Sharded runs: a checkpoint restores into ``ckpt_example`` (default
+    ``init_state``) before ``on_restore``; ``to_checkpoint`` maps the state
+    to what is written (the unsharded state: a collective, so every rank
+    calls it), and only the ``writer`` rank writes."""
     start = start_step
     state = init_state
     resumed = None
     if cfg.ckpt_dir is not None and latest_step(cfg.ckpt_dir) is not None:
-        state, start = restore_checkpoint(cfg.ckpt_dir, init_state)
+        state, start = restore_checkpoint(
+            cfg.ckpt_dir, init_state if ckpt_example is None
+            else ckpt_example)
         resumed = start
         if on_restore is not None:
             state = on_restore(state)
@@ -107,12 +116,16 @@ def run_training(cfg: LoopConfig, init_state: Any,
         if cfg.ckpt_dir is not None and (step + 1) % cfg.ckpt_every == 0:
             if pending is not None:
                 pending.join()
-            pending = save_checkpoint(cfg.ckpt_dir, step + 1, state,
-                                      async_=cfg.async_ckpt)
+            tree = state if to_checkpoint is None else to_checkpoint(state)
+            pending = save_checkpoint(cfg.ckpt_dir, step + 1, tree,
+                                      async_=cfg.async_ckpt) \
+                if writer else None
     if pending is not None:
         pending.join()
     if cfg.ckpt_dir is not None:
-        save_checkpoint(cfg.ckpt_dir, cfg.max_steps, state)
+        tree = state if to_checkpoint is None else to_checkpoint(state)
+        if writer:
+            save_checkpoint(cfg.ckpt_dir, cfg.max_steps, tree)
     return LoopReport(cfg.max_steps - start, resumed, strays, relayouts,
                       losses, evals, final_state=state)
 
@@ -121,9 +134,13 @@ def run_pipeline(cfg: LoopConfig, pipeline) -> LoopReport:
     """Drive a ``repro_torch.pipeline.Pipeline`` under the fault-tolerant
     loop: the pipeline supplies the initial state, the accumulated-
     microbatch ``step_fn``, ``on_relayout`` (re-plans and re-places the
-    state) and ``apply_plan`` (re-places restored leaves on their tiers)."""
+    state), ``restore_state`` (shards restored leaves and places them on
+    their tiers) and what a checkpoint writes (``checkpoint_state``)."""
     return run_training(cfg, pipeline.init_state(), pipeline.step_fn,
                         on_relayout=pipeline.on_relayout,
-                        on_restore=pipeline.apply_plan,
+                        on_restore=pipeline.restore_state,
                         eval_fn=getattr(pipeline, "eval_fn", None),
-                        step_context=getattr(pipeline, "step_context", None))
+                        step_context=getattr(pipeline, "step_context", None),
+                        ckpt_example=pipeline.checkpoint_example(),
+                        to_checkpoint=pipeline.checkpoint_state,
+                        writer=pipeline.is_writer)

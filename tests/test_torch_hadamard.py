@@ -183,11 +183,16 @@ def test_hadamard_knob(hadamard, fused):
 
 
 def test_hadamard_knob_and_ring_raise():
+    """An unknown route raises; the ring dispatch builds and, as the
+    reference's, takes NGCF's composed route (its rotation schedule has
+    no fused gather-multiply-aggregate)."""
     user = np.zeros(2, np.int32)
     with pytest.raises(ValueError, match="hadamard must be"):
         BipartiteCSR(user, user, 2, 2, device="cpu", hadamard="nope")
-    with pytest.raises(NotImplementedError, match="A10"):
-        BipartiteCSR(user, user, 2, 2, device="cpu", impl="ring")
+    g = BipartiteCSR(user, user, 2, 2, device="cpu", impl="ring")
+    jg = JBipartiteCSR(user, user, 2, 2, impl="ring")
+    assert g.fused_hadamard is jg.fused_hadamard is False
+    assert g.spmm == jg.spmm == "ring"
 
 
 def _aggs(tg, jg, ni, nu):

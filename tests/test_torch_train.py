@@ -324,12 +324,31 @@ def test_grads_for_batch_matches_full_batch(batch):
     ("mesh_shape", (4,)), ("spmm", "ring"), ("impl", "ring"),
     ("ring_steps", 2), ("ring_compression", "int8")])
 def test_unported_config_options_raise(field, value):
-    """Sharded execution and its ring payload are the options the port
-    still refuses, naming ROADMAP A10."""
+    """The sharded-execution options in one process, as the reference
+    takes them: a 4-shard mesh at world size 1 raises ValueError (the
+    port names the world size and torchrun); the one-shard ring
+    (``spmm``/``impl='ring'``) builds with the reference's shard plan and
+    ``TrainPlan`` lines; ``ring_steps`` and ``ring_compression`` alone
+    leave the plan inert, as the reference's ``from_config`` does."""
     train, _ = _smoke_data()
     cfg = dataclasses.replace(PipelineConfig(microbatch=64), **{field: value})
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_pipeline(cfg, train, device="cpu")
+    jcfg = dataclasses.replace(JPipelineConfig(microbatch=64),
+                               **{field: value})
+    if field == "mesh_shape":
+        with pytest.raises(ValueError, match="world size is 1"):
+            build_pipeline(cfg, train, device="cpu")
+        with pytest.raises(ValueError):
+            jbuild_pipeline(jcfg, train)
+        return
+    pipe = build_pipeline(cfg, train, device="cpu")
+    jpipe = jbuild_pipeline(jcfg, train)
+    ring = field in ("spmm", "impl")
+    assert (pipe.shard is not None) == (jpipe.shard is not None) == ring
+    if ring:
+        assert pipe.shard.describe() == jpipe.shard.describe() \
+            == "mesh=1 axes=data spmm=ring"
+        assert pipe.g.spmm == jpipe.g.spmm == "ring"
+    assert _masked(pipe.plan.describe()) == _masked(jpipe.plan.describe())
 
 
 def _masked(text):
