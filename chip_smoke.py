@@ -18,6 +18,16 @@ Phases (any failure exits non-zero before the last line is printed):
      yardstick of a few calls where none exists; ``ann_block_scores``,
      ``embedding_bag`` and their library calls also on the device alone (a
      CUDA graph replay) and on the host;
+  3b. the model pool at FULL width on an otherwise empty card (``models``,
+     one line per run; the MODELS_* constants below): DeepFM and xDeepFM
+     through the legacy ``train_recsys`` step (dense Adam), DLRM-RM2's
+     69.8 GB tables through the reference's production step (lazy
+     row-wise AdaGrad in place) and ``dlrm_retrieve`` over 1,048,576
+     candidates, BERT4Rec's sampled cloze loss and retrieval over the
+     catalogue, GCN (gcn-cora FULL) full-graph on a seeded graph of the
+     ogb_products shape and ``forward_batched`` at the molecule shape;
+     each run's first loss and gradients held against the CPU on a slice,
+     its step ms, memory and cuts (``reduced``) printed;
   4. drive the serving path at the LightGCN FULL width
      (``src/repro/configs/lightgcn.py:7``: 349,184 users x 53,248 items,
      D = 128, 3 layers) with 2^24 requested edges: data -> BipartiteCSR
@@ -257,6 +267,32 @@ SHARDED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 # of SPLIT_SRC_ROWS rows
 SPLIT_CASES = ("long_row", "boundaries", "no_edges", "long_indptr")
 SPLIT_SRC_ROWS = 500
+# the models phase (ROADMAP A11a, A12a): each run at its FULL widths on a card
+# holding less than MODELS_MAX_START_BYTES, MODELS_STEPS steps (GCN_STEPS for
+# gcn); each run's first loss and gradients held against the CPU on
+# MODELS_CHECK_ROWS rows of its first batch (loss rtol MODELS_LOSS_RTOL,
+# gradients GRAD_RTOL relative in the norm).  Batches: the reference's
+# train_batch (src/repro/configs/deepfm.py:14) but where a cut is listed in
+# the run's "reduced".  Learning rates: train_recsys's Adam 1e-3 (deepfm,
+# xdeepfm), the reference cells' adam(1e-4) (src/repro/launch/cells.py:36;
+# dlrm_rm2's MLPs, bert4rec), train_gcn's 1e-2.
+MODELS_MAX_START_BYTES = 1 << 30
+MODELS_STEPS, MODELS_CHECK_ROWS, MODELS_LOSS_RTOL = 5, 1_024, 1e-5
+MODELS_BATCH = {"deepfm": 65_536, "xdeepfm": 4_096, "dlrm_rm2": 65_536,
+                "bert4rec": 256}
+MODELS_LR = {"deepfm": 1e-3, "xdeepfm": 1e-3, "dlrm_rm2": 1e-4,
+             "bert4rec": 1e-4, "gcn": 1e-2}
+# dlrm_rm2: the working set set aside beside the tables (DLRM_WORK_COPIES
+# copies of the batch's [B, 27, 64] interaction input, and DLRM_RESERVE for
+# the libraries), then dlrm_retrieve over DLRM_CANDIDATES candidates
+DLRM_WORK_COPIES, DLRM_RESERVE, DLRM_CANDIDATES = 12, 1 << 30, 1_048_576
+BERT4REC_USERS = 64         # bert4rec_retrieve over the whole catalogue
+# gcn: the ogb_products shape (src/repro/configs/gcn_cora.py:25) on the
+# gcn-cora FULL model, the CPU check on the subgraph induced by the first
+# GCN_CHECK_NODES nodes; the molecule shape (gcn_cora.py:27)
+GCN_NODES, GCN_EDGES, GCN_FEAT, GCN_CLASSES = 2_449_029, 61_859_140, 100, 47
+GCN_STEPS, GCN_CHECK_NODES = 3, 65_536
+MOL_GRAPHS, MOL_NODES, MOL_EDGES, MOL_FEAT, MOL_CLASSES = 128, 30, 64, 64, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -605,6 +641,15 @@ def _topk_case(rng, case):
         ie = np.repeat(rng.integers(-2, 3, (ni // 3 + 1, d))
                        .astype(np.float32), 3, axis=0)[:ni]
         seen = rng.integers(0, ni, (b, L)).astype(np.int32)
+    elif case == "nan_inf":                   # ±NaN of two payloads, ±inf
+        nan = np.array([0x7FC00000, 0x7FC00123, 0xFFC00000, 0xFFC00456,
+                        0x7F800000, 0xFF800000], np.uint32).view(np.float32)
+        ie[::11, 3] = nan[rng.integers(0, 4, len(ie[::11]))]
+        ie[5::13] = nan[4]
+        ie[7::13] = nan[5]
+        ue[3] = nan[0]
+        ue[4] = nan[2]
+        ue[6, ::2] = nan[4]
     elif case == "ties_across_splits":        # one tile's rows over and over
         from repro_torch.kernels.topk_score import ITEM_TILE
         b, ni = 70, 4000                      # two user tiles, 32 item tiles
@@ -619,13 +664,14 @@ def check_topk(torch, dev, rng) -> float:
     """Integer-valued inputs (ids and scores bitwise): forced ties, -0.0,
     K > catalogue, fully masked users, an empty seen list, D % 4 != 0,
     K = 256 (the old cap), K = 300 and 2,000 with forced ties, ties that
-    straddle the kernel's split boundaries; plus real-valued scores
-    (near-tie rule)."""
+    straddle the kernel's split boundaries, ±NaN of two payloads and ±inf
+    among finite rows (score bits and ids bitwise: IEEE total order); plus
+    real-valued scores (near-tie rule)."""
     from repro_torch.kernels import ops, ref
     worst = 0.0
     for case in ("integer_ties", "neg_zero", "k_gt_catalogue", "fully_masked",
                  "ragged_d", "empty_seen", "k_max", "k_300", "k_2000",
-                 "ties_across_splits", "float"):
+                 "ties_across_splits", "nan_inf", "float"):
         ue, ie, seen, mask, k, ni = _topk_case(rng, case)
         if case == "float":
             ue = rng.standard_normal(ue.shape).astype(np.float32)
@@ -638,6 +684,13 @@ def check_topk(torch, dev, rng) -> float:
             s_p, i_p = ref.fused_topk_score_ref(*args, k=k, n_items=ni,
                                                 item_block=blk)
             torch.cuda.synchronize()
+            if case == "nan_inf":             # NaN bits: compare int32 views
+                require(torch.equal(s_k.view(torch.int32),
+                                    s_p.view(torch.int32))
+                        and torch.equal(i_k, i_p),
+                        f"fused_topk_score nan_inf blk={blk}: not bitwise "
+                        "equal to the plain version")
+                continue
             topk_agree(s_k.cpu(), i_k.cpu(), s_p.cpu(), i_p.cpu(),
                        f"fused_topk_score {case} blk={blk}",
                        exact=case != "float")
@@ -777,6 +830,377 @@ def check_ann(torch, dev, rng) -> float:
                 else:
                     worst = max(worst, close(torch, got, want, what))
     return worst
+
+
+# ------------------------------------------------------------------ models
+def _to_cpu(torch, obj):
+    """Tensors, graphs and nested dicts/lists of them, copied to the host."""
+    from repro_torch.core.graph import Graph
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, Graph):
+        return Graph(obj.src.cpu(), obj.dst.cpu(), obj.edge_mask.cpu(),
+                     obj.n_nodes, obj.n_edges)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_cpu(torch, v) for v in obj]
+    return obj
+
+
+def models_cpu_check(torch, loss_of, params, feats, rows: int) -> dict:
+    """The loss and every gradient of ``loss_of(params, feats)`` on the
+    card against the same port functions on the CPU, from the same params
+    and inputs (``rows`` rows of the run's first batch): the loss within
+    rtol MODELS_LOSS_RTOL, each gradient within GRAD_RTOL relative in the
+    norm."""
+    from repro_torch.core.train_step import value_and_grad
+    from repro_torch.optim.optimizers import tree_paths
+    loss_c, grads_c = value_and_grad(lambda p: loss_of(p, feats), params)
+    loss_h, grads_h = value_and_grad(
+        lambda p: loss_of(p, _to_cpu(torch, feats)), _to_cpu(torch, params))
+    loss_c, loss_h = float(loss_c), float(loss_h)
+    loss_rel = abs(loss_c - loss_h) / max(abs(loss_h), 1e-30)
+    require(np.isfinite(loss_c) and loss_rel <= MODELS_LOSS_RTOL,
+            f"models: card loss {loss_c} vs CPU {loss_h} (rel {loss_rel})")
+    grad_rel = {}
+    for (path, g_c), (_, g_h) in zip(tree_paths(grads_c), tree_paths(grads_h)):
+        grad_rel[path] = rel_norm(g_c, g_h.to(g_c.device))
+        require(grad_rel[path] <= GRAD_RTOL,
+                f"models: gradient {path} rel {grad_rel[path]} > {GRAD_RTOL}")
+    return {"rows": rows, "loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_rel": loss_rel, "grad_rel_max": max(grad_rel.values()),
+            "grad_rel": grad_rel}
+
+
+def models_train(torch, step, state, batches) -> dict:
+    """Drive ``step(state, batch) -> (state, loss)`` over ``batches``: host
+    ms around each synchronised step, the device memory allocated after
+    each, and the finite losses.  Returns the record and the last state."""
+    losses, ms, between = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        between.append(torch.cuda.memory_allocated())
+    require(all(np.isfinite(losses)), f"models: losses not finite: {losses}")
+    return {"losses": losses, "first_step_ms": ms[0],
+            "step_ms": float(np.median(ms[1:])) if len(ms) > 1 else ms[0],
+            "steps_ms": ms, "between_steps_bytes": between}, state
+
+
+def _models_record(torch, run, cfg, batch, reduced, record, check,
+                   t0) -> dict:
+    return {"phase": "models", "run": run, "config": str(cfg),
+            "batch": batch, "reduced": reduced, **record,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "cpu_check": check, "seconds": time.perf_counter() - t0}
+
+
+def models_ctr(torch, dev, arch: str, batch: int, reduced: list) -> dict:
+    """DeepFM or xDeepFM at FULL width through ``train_recsys``'s step
+    (BCE, gradients w.r.t. every param, dense Adam 1e-3)."""
+    from repro_torch import configs
+    from repro_torch.launch.train import recsys_train_step
+    from repro_torch.models import recsys_models as rm
+    from repro_torch.optim import adam
+    t0 = time.perf_counter()
+    cfg = configs.get(arch).FULL
+    init, fwd = {"deepfm": (rm.deepfm_init, rm.deepfm_forward),
+                 "xdeepfm": (rm.xdeepfm_init, rm.xdeepfm_forward)}[arch]
+    torch.cuda.reset_peak_memory_stats()
+    params = init(cfg, SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [(torch.randint(0, cfg.vocab, (batch, cfg.n_sparse),
+                              generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 2, (batch,), generator=gen,
+                              device=dev).float())
+               for _ in range(MODELS_STEPS)]
+    check = models_cpu_check(
+        torch, lambda p, f: rm.bce_loss(fwd(cfg, p, f[0]), f[1]), params,
+        [t[:MODELS_CHECK_ROWS] for t in batches[0]], MODELS_CHECK_ROWS)
+    opt = adam(MODELS_LR[arch])
+    step = recsys_train_step(arch, cfg, opt)
+    record, _ = models_train(torch, lambda s, b: step(s, *b),
+                             {"params": params, "opt": opt.init(params)},
+                             batches)
+    return _models_record(torch, arch, cfg, batch, reduced, record, check, t0)
+
+
+def dlrm_vocab(torch, dev, cfg, batch: int) -> tuple[int, dict]:
+    """The largest vocab (at most FULL's) whose tables and row
+    accumulator fit the card's free memory beside the step's working set
+    (DLRM_WORK_COPIES copies of the batch's [B, F + 1, D] interaction
+    input) and DLRM_RESERVE: arithmetic before anything is allocated."""
+    free, total = torch.cuda.mem_get_info(dev)
+    row_bytes = cfg.n_sparse * (cfg.embed_dim + 1) * 4   # rows + acc scalars
+    work = DLRM_WORK_COPIES * batch * (cfg.n_sparse + 1) * cfg.embed_dim * 4
+    fit = (free - work - DLRM_RESERVE) // row_bytes
+    return int(min(cfg.vocab, fit)), {
+        "free_bytes": free, "total_bytes": total, "bytes_per_vocab_row":
+        row_bytes, "work_bytes": work, "reserve_bytes": DLRM_RESERVE,
+        "tables_bytes": cfg.n_sparse * cfg.vocab * cfg.embed_dim * 4}
+
+
+def models_dlrm(torch, dev) -> dict:
+    """DLRM-RM2 through the reference's production step
+    (``launch/cells.py:510-527``): gradients w.r.t. the gathered rows and
+    the MLPs, lazy row-wise AdaGrad in place on the 69.8 GB tables, Adam
+    1e-4 on the MLPs; then ``dlrm_retrieve`` over DLRM_CANDIDATES
+    candidates, held to ``dlrm_forward`` with the candidate substituted."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.train import dlrm_rowwise_step
+    from repro_torch.models import recsys_models as rm
+    from repro_torch.optim import adam
+    t0 = time.perf_counter()
+    batch = MODELS_BATCH["dlrm_rm2"]
+    full = configs.get("dlrm_rm2").FULL
+    vocab, memory = dlrm_vocab(torch, dev, full, batch)
+    reduced = [] if vocab == full.vocab else [
+        f"vocab {full.vocab} -> {vocab}: the tables and accumulator at FULL "
+        f"do not fit beside the working set ({memory})"]
+    cfg = dataclasses.replace(full, vocab=vocab)
+    torch.cuda.reset_peak_memory_stats()
+    params = rm.dlrm_init(cfg, SEED, device=dev)
+    acc = torch.zeros((cfg.n_sparse, cfg.vocab), dtype=torch.float32,
+                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [(torch.randn((batch, cfg.n_dense), generator=gen, device=dev),
+                torch.randint(0, cfg.vocab, (batch, cfg.n_sparse),
+                              generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 2, (batch,), generator=gen,
+                              device=dev).float())
+               for _ in range(MODELS_STEPS)]
+    dense, ids, labels = (t[:MODELS_CHECK_ROWS] for t in batches[0])
+    with torch.no_grad():
+        emb = rm.lookup_fields(params["tables"], ids)
+    check = models_cpu_check(
+        torch, lambda p, f: rm.bce_loss(rm.dlrm_forward_from_emb(
+            cfg, p, f[0], p["emb"]), f[1]),
+        {"emb": emb, "bot": params["bot"], "top": params["top"]},
+        [dense, labels], MODELS_CHECK_ROWS)
+    del emb
+    opt = adam(MODELS_LR["dlrm_rm2"])
+    step = dlrm_rowwise_step(cfg, opt)
+
+    def train_step(state, b):
+        p, o, loss = step(*state, *b)
+        return (p, o), loss
+
+    mlps = {"bot": params["bot"], "top": params["top"]}
+    record, (params, _) = models_train(
+        torch, train_step, (params, {"acc": acc, "mlp": opt.init(mlps)}),
+        batches)
+    record["memory"] = memory
+    # retrieval: one user (row 0 of the first batch) x the candidates
+    dense1, ids1 = batches[0][0][:1], batches[0][1][:1]
+    cand = torch.randint(0, cfg.vocab, (DLRM_CANDIDATES,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        scores, ms = timed(torch, lambda: rm.dlrm_retrieve(
+            cfg, params, dense1, ids1, cand))
+        _, ms2 = timed(torch, lambda: rm.dlrm_retrieve(
+            cfg, params, dense1, ids1, cand))
+        pick = torch.randint(0, DLRM_CANDIDATES, (7,), generator=gen,
+                             device=dev)
+        ids7 = ids1.repeat(7, 1)
+        ids7[:, 0] = cand[pick]
+        slow = rm.dlrm_forward(cfg, params, dense1.expand(7, -1), ids7)
+    require(bool(torch.isfinite(scores).all())
+            and scores.shape == (DLRM_CANDIDATES,), "dlrm_retrieve: scores")
+    err = float((scores[pick] - slow).abs().max())
+    require(torch.allclose(scores[pick], slow, rtol=1e-4, atol=1e-5),
+            f"dlrm_retrieve != dlrm_forward with the candidate: {err}")
+    record["retrieve"] = {"candidates": DLRM_CANDIDATES, "ms": [ms, ms2],
+                          "vs_forward_max_abs_err": err,
+                          "tolerance": "rtol 1e-4, atol 1e-5 (the "
+                                       "reference's, tests/test_arch_smoke"
+                                       ".py:162), 7 sampled candidates"}
+    return _models_record(torch, "dlrm_rm2", cfg, batch, reduced, record,
+                          check, t0)
+
+
+def models_bert4rec(torch, dev) -> dict:
+    """BERT4Rec FULL: ``bert4rec_sampled_loss`` (N_MASKED masked positions,
+    N_NEGATIVES negatives) under Adam 1e-4, then ``bert4rec_retrieve`` for
+    BERT4REC_USERS users over the whole catalogue (a slice of the users
+    held against the CPU)."""
+    from repro_torch import configs
+    from repro_torch.core.train_step import value_and_grad
+    from repro_torch.models import recsys_models as rm
+    from repro_torch.optim import adam
+    t0 = time.perf_counter()
+    mod = configs.get("bert4rec")
+    cfg, batch = mod.FULL, MODELS_BATCH["bert4rec"]
+    s, m, n = cfg.seq_len, mod.N_MASKED, mod.N_NEGATIVES
+    torch.cuda.reset_peak_memory_stats()
+    params = rm.bert4rec_init(cfg, SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def batch_of():
+        seq = torch.randint(0, cfg.n_items, (batch, s), generator=gen,
+                            device=dev, dtype=torch.int32)
+        length = torch.randint(s // 2, s + 1, (batch, 1), generator=gen,
+                               device=dev)
+        smask = torch.arange(s, device=dev)[None, :] < length
+        mpos = torch.randint(0, s // 2, (batch, m), generator=gen,
+                             device=dev, dtype=torch.int32)
+        labels = torch.randint(0, cfg.n_items, (batch, m), generator=gen,
+                               device=dev, dtype=torch.int32)
+        negs = torch.randint(0, cfg.n_items, (batch, m, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+        return [seq, smask, mpos, labels, negs]
+
+    batches = [batch_of() for _ in range(MODELS_STEPS)]
+    rows = min(MODELS_CHECK_ROWS, batch)
+    check = models_cpu_check(
+        torch, lambda p, f: rm.bert4rec_sampled_loss(cfg, p, *f), params,
+        [t[:rows] for t in batches[0]], rows)
+    opt = adam(MODELS_LR["bert4rec"])
+
+    def step(state, b):
+        loss, grads = value_and_grad(
+            lambda p: rm.bert4rec_sampled_loss(cfg, p, *b), state["params"])
+        p, o = opt.update(grads, state["opt"], state["params"])
+        return {"params": p, "opt": o}, loss
+
+    record, state = models_train(
+        torch, step, {"params": params, "opt": opt.init(params)}, batches)
+    params = state["params"]
+    seq, smask = batches[0][0][:BERT4REC_USERS], batches[0][1][:BERT4REC_USERS]
+    cand = torch.arange(cfg.n_items, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        scores, ms = timed(torch, lambda: rm.bert4rec_retrieve(
+            cfg, params, seq, smask, cand))
+        _, ms2 = timed(torch, lambda: rm.bert4rec_retrieve(
+            cfg, params, seq, smask, cand))
+        want = rm.bert4rec_retrieve(cfg, _to_cpu(torch, params),
+                                    seq[:4].cpu(), smask[:4].cpu(),
+                                    cand.cpu())
+    require(bool(torch.isfinite(scores).all())
+            and scores.shape == (BERT4REC_USERS, cfg.n_items),
+            "bert4rec_retrieve: scores")
+    err = close(torch, scores[:4].cpu(), want, "bert4rec_retrieve vs CPU")
+    record["retrieve"] = {"users": BERT4REC_USERS, "candidates": cfg.n_items,
+                          "ms": [ms, ms2], "cpu_users": 4,
+                          "vs_cpu_max_abs_err": err}
+    reduced = [f"batch 65,536 -> {batch}: the sampled softmax's candidate "
+               f"rows [B, {m}, {n + 1}, {cfg.embed_dim}] are 1.34 GB at "
+               f"{batch}"]
+    return _models_record(torch, "bert4rec", cfg, batch, reduced, record,
+                          check, t0)
+
+
+def models_gcn(torch, dev) -> dict:
+    """gcn-cora FULL (2 layers, hidden 16) on a seeded graph of the
+    ogb_products shape drawn on the card: full-graph ``loss_fn`` under
+    Adam 1e-2 for GCN_STEPS steps; the COO aggregation's ms per layer
+    (``gspmm_copy_sum``: an [E, D] message tensor and ``index_add_``); the
+    CPU check on the subgraph induced by the first GCN_CHECK_NODES nodes;
+    ``forward_batched`` at the molecule shape against the CPU."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.graph import Graph, sym_norm_coeff
+    from repro_torch.core.sparse_ops import gspmm_copy_sum
+    from repro_torch.launch.train import gcn_train_step
+    from repro_torch.models import gcn
+    from repro_torch.optim import adam
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("gcn_cora").FULL, d_feat=GCN_FEAT,
+                              n_classes=GCN_CLASSES)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src = torch.randint(0, GCN_NODES, (GCN_EDGES,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    dst = torch.randint(0, GCN_NODES, (GCN_EDGES,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    g = Graph(src, dst, torch.ones(GCN_EDGES, dtype=torch.bool, device=dev),
+              GCN_NODES, GCN_EDGES)
+    x = torch.randn((GCN_NODES, GCN_FEAT), generator=gen, device=dev)
+    labels = torch.randint(0, GCN_CLASSES, (GCN_NODES,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lmask = torch.ones(GCN_NODES, device=dev)
+    params = gcn.init_params(cfg, SEED, device=dev)
+    build_s = time.perf_counter() - t0
+    n0 = GCN_CHECK_NODES
+    keep = (src < n0) & (dst < n0)
+    sub = Graph(src[keep].contiguous(), dst[keep].contiguous(),
+                torch.ones(int(keep.sum()), dtype=torch.bool, device=dev),
+                n0, int(keep.sum()))
+    check = models_cpu_check(
+        torch, lambda p, f: gcn.loss_fn(cfg, p, *f), params,
+        [sub, x[:n0], labels[:n0], lmask[:n0]], n0)
+    check["edges"] = sub.n_edges
+    del keep, sub
+    opt = adam(MODELS_LR["gcn"])
+    step = gcn_train_step(cfg, g, x, labels, lmask, opt)
+    record, _ = models_train(torch, lambda s, _: step(s),
+                             {"params": params, "opt": opt.init(params)},
+                             [None] * GCN_STEPS)
+    with torch.no_grad():
+        coeff = sym_norm_coeff(g)
+        h = torch.randn((GCN_NODES, cfg.d_hidden), generator=gen, device=dev)
+        record["aggregation_ms"] = {
+            f"d{t.shape[1]}": cuda_ms(torch, lambda t=t: gspmm_copy_sum(
+                t, g.src, g.dst, GCN_NODES, g.edge_mask, coeff),
+                reps=3, warmup=1)
+            for t in (x, h)}
+    del coeff, h
+    record["graph_build_s"] = build_s
+    # the molecule shape: MOL_GRAPHS graphs of MOL_NODES nodes, MOL_EDGES
+    # edges each, mean readout
+    mcfg = dataclasses.replace(cfg, d_feat=MOL_FEAT, n_classes=MOL_CLASSES)
+    mparams = gcn.init_params(mcfg, SEED, device=dev)
+    base = (torch.arange(MOL_GRAPHS, device=dev) * MOL_NODES)[:, None]
+    msrc = (base + torch.randint(0, MOL_NODES, (MOL_GRAPHS, MOL_EDGES),
+                                 generator=gen, device=dev)).reshape(-1)
+    mdst = (base + torch.randint(0, MOL_NODES, (MOL_GRAPHS, MOL_EDGES),
+                                 generator=gen, device=dev)).reshape(-1)
+    mmask = torch.ones(msrc.shape[0], dtype=torch.bool, device=dev)
+    mx = torch.randn((MOL_GRAPHS * MOL_NODES, MOL_FEAT), generator=gen,
+                     device=dev)
+    gid = torch.arange(MOL_GRAPHS, device=dev).repeat_interleave(MOL_NODES)
+    margs = [msrc, mdst, mmask, mx, gid]
+    with torch.no_grad():
+        out = gcn.forward_batched(mcfg, mparams, *margs, MOL_GRAPHS)
+        want = gcn.forward_batched(mcfg, _to_cpu(torch, mparams),
+                                   *_to_cpu(torch, margs), MOL_GRAPHS)
+        record["molecule"] = {
+            "graphs": MOL_GRAPHS, "nodes": MOL_NODES, "edges": MOL_EDGES,
+            "ms": cuda_ms(torch, lambda: gcn.forward_batched(
+                mcfg, mparams, *margs, MOL_GRAPHS)),
+            "vs_cpu_max_abs_err": close(torch, out.cpu(), want,
+                                        "forward_batched vs CPU")}
+    return _models_record(torch, "gcn", cfg, "full graph", [], record,
+                          check, t0)
+
+
+def models_phase(torch, dev) -> None:
+    """A11a/A12a at FULL width, one ``{"phase": "models"}`` line per run, on
+    a card otherwise empty (less than MODELS_MAX_START_BYTES allocated)."""
+    t0 = time.perf_counter()
+    start = torch.cuda.memory_allocated()
+    require(start < MODELS_MAX_START_BYTES,
+            f"models: {start} bytes allocated at the phase's start")
+    for run in ("deepfm", "xdeepfm", "dlrm_rm2", "bert4rec", "gcn"):
+        at_start = torch.cuda.memory_allocated()
+        if run in ("deepfm", "xdeepfm"):
+            reduced = [] if run == "deepfm" else [
+                "batch 65,536 -> 4,096: CIN's [B, 200, 39, 10] outer product "
+                "is 1.28 GB a layer at 4,096 and 20.4 GB at 65,536"]
+            rec = models_ctr(torch, dev, run, MODELS_BATCH[run], reduced)
+        else:
+            rec = {"dlrm_rm2": models_dlrm, "bert4rec": models_bert4rec,
+                   "gcn": models_gcn}[run](torch, dev)
+        rec["allocated_at_start_bytes"] = at_start
+        _free(torch)
+        emit(rec)
+    emit({"phase": "models", "seconds": time.perf_counter() - t0,
+          "allocated_at_start_bytes": start})
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2811,6 +3235,9 @@ def main() -> int:
                 "hadamard_spmm": check_hadamard(torch, dev, rng),
                 "ann_block_scores": check_ann(torch, dev, rng)}
         emit({"phase": "adversarial", "max_abs_err": errs})
+    _free(torch)
+    models_phase(torch, dev)
+    with torch.no_grad():
         g, train, test = build_graph(torch, dev)
         from repro_torch.pipeline import get_model
         params = get_model("lightgcn").init(SEED, N_USERS, N_ITEMS, EMBED_DIM,

@@ -1,6 +1,9 @@
 """Bayesian Personalized Ranking (the port of ``repro/core/bpr.py``):
-the BPR loss, uniform negative sampling and the user-CSR helper."""
+the BPR loss, uniform negative sampling, the user-CSR helper and the
+dense recall@K oracle."""
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -45,3 +48,45 @@ def build_user_csr(user: np.ndarray, item: np.ndarray,
     indptr = np.zeros(n_users + 1, np.int64)
     indptr[1:] = np.cumsum(np.bincount(user, minlength=n_users))
     return indptr, item[order].astype(np.int64)
+
+
+def recall_at_k(user_e, item_e, train, test_pos: list[np.ndarray],
+                k: int = 20) -> float:
+    """Dense-score recall@k — the small-graph reference oracle (it still
+    materializes the U×I score matrix; production eval is the streaming
+    path in ``repro_torch.eval``).
+
+    ``user_e``/``item_e`` are tensors or numpy arrays; the scores
+    ``user_e @ item_e.T`` come to the host, where the rest runs in numpy
+    as the reference's does, so the same scores give the same recall bit
+    for bit.  ``train`` masks already-seen items, either as the (indptr,
+    items) user-CSR from ``build_user_csr`` (canonical — O(E)), or as the
+    legacy dense boolean mask [U, I] (deprecated; itself O(U×I)).
+    test_pos[u] = array of held-out item ids."""
+    scores = (torch.as_tensor(user_e) @ torch.as_tensor(item_e).T
+              ).detach().cpu().numpy()
+    if isinstance(train, np.ndarray):
+        if train.ndim != 2 or train.dtype != bool:
+            raise TypeError("dense train mask must be a 2-D boolean array; "
+                            "pass build_user_csr(...) otherwise")
+        warnings.warn(
+            "passing a dense [U, I] boolean train mask to recall_at_k is "
+            "deprecated (it materializes the U×I matrix twice); pass the "
+            "(indptr, items) user-CSR from build_user_csr, or use the "
+            "streaming evaluation in repro_torch.eval (evaluate_embeddings)",
+            DeprecationWarning, stacklevel=2)
+        scores[train] = -np.inf            # legacy dense-mask shim
+    else:
+        indptr, items = train
+        indptr = np.asarray(indptr)
+        items = np.asarray(items)
+        rows = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+        scores[rows, items] = -np.inf
+    topk = np.argpartition(-scores, min(k, scores.shape[1] - 1), axis=1)[:, :k]
+    recalls = []
+    for u, pos in enumerate(test_pos):
+        if len(pos) == 0:
+            continue
+        hits = np.intersect1d(topk[u], pos).size
+        recalls.append(hits / len(pos))
+    return float(np.mean(recalls)) if recalls else 0.0

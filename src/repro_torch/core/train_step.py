@@ -6,7 +6,8 @@ forward is ``ngcf.forward(p, g, opt_level=3)`` or
 
 ``bpr_value_and_grad`` is the step's loss and gradients alone (the
 paper's Fig 5 training arm, and the full-graph arm of the subgraph
-comparison)."""
+comparison); ``value_and_grad`` is the same for any loss of a param tree
+(the legacy trainers' and the model pool's)."""
 from __future__ import annotations
 
 import torch
@@ -15,16 +16,22 @@ from repro_torch.core import bpr
 from repro_torch.optim.optimizers import Optimizer, tree_leaves, tree_map
 
 
+def value_and_grad(loss_of, params):
+    """(loss, grads) of ``loss_of(params)``; ``grads`` has ``params``'
+    structure and ``params`` are not modified."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss = loss_of(live)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
 def bpr_value_and_grad(forward, params, users, pos, neg):
     """(loss, grads) of the BPR loss of ``forward(params) -> (user_emb,
     item_emb)``; ``grads`` has ``params``' structure and ``params`` are
     not modified."""
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    with torch.enable_grad():
-        ue, ie = forward(live)
-        loss = bpr.bpr_loss(ue, ie, users, pos, neg)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    return value_and_grad(
+        lambda p: bpr.bpr_loss(*forward(p), users, pos, neg), params)
 
 
 def full_graph_step(forward, opt: Optimizer):

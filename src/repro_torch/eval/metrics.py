@@ -21,16 +21,30 @@ from repro_torch.eval.topk import streaming_topk
 
 def ranked_hits(topk_ids: np.ndarray, test_pos: list[np.ndarray]) -> np.ndarray:
     """hits[u, j] = (topk_ids[u, j] in test_pos[u]).  topk_ids: i32[n, K]
-    with -1 for invalid slots (never a hit — item ids are >= 0)."""
+    with -1 for invalid slots (never a hit — item ids are >= 0).
+
+    One membership test over packed (row, id) keys ``row * width + (id -
+    lo)``, ``width`` one more than the span [lo, hi] of every id on either
+    side, so two keys are equal only where row and id both are: the
+    held-out keys sorted once, each ranked key looked up by
+    ``searchsorted``.  The reference's per-row ``np.isin`` loop, bit for
+    bit."""
     topk_ids = np.asarray(topk_ids)
-    n, _ = topk_ids.shape
+    n = topk_ids.shape[0]
     if n != len(test_pos):
         raise ValueError(f"{n} ranked rows vs {len(test_pos)} test lists")
-    hits = np.zeros(topk_ids.shape, bool)
-    for u, pos in enumerate(test_pos):
-        if len(pos):
-            hits[u] = np.isin(topk_ids[u], pos)
-    return hits
+    sizes = np.fromiter(map(len, test_pos), np.int64, n)
+    if topk_ids.size == 0 or not sizes.any():
+        return np.zeros(topk_ids.shape, bool)
+    pos = np.concatenate(test_pos).astype(np.int64, copy=False)
+    ranked = topk_ids.astype(np.int64)
+    lo = min(int(ranked.min()), int(pos.min()))
+    width = max(int(ranked.max()), int(pos.max())) - lo + 1
+    rows = np.arange(n, dtype=np.int64)
+    held = np.sort(np.repeat(rows, sizes) * width + (pos - lo))
+    keys = rows[:, None] * width + (ranked - lo)
+    at = np.minimum(np.searchsorted(held, keys), len(held) - 1)
+    return held[at] == keys
 
 
 def ranking_metrics(topk_ids: np.ndarray, test_pos: list[np.ndarray],

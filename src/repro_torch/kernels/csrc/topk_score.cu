@@ -3,8 +3,9 @@
 // For each user b: scores = ue[b] . table[i] for i < n_items; a score equal to
 // zero becomes +0.0; ids >= n_items and live seen ids become -inf; the result
 // is the first K of all (score, id) pairs plus K (-inf, -1) seed slots in the
-// order (score desc, id asc). The seeds sort before any (-inf, id >= 0), so
-// short slots are (-inf, -1) exactly as in the TPU kernel. Any K is taken.
+// order (score desc, id asc), scores in IEEE total order (order_key). The
+// seeds sort before any (-inf, id >= 0) and any -NaN, so short slots are
+// (-inf, -1) exactly as in the TPU kernel. Any K is taken.
 //
 // Replaces src/repro/kernels/topk_score.py:fused_topk_score_pallas (_kernel).
 //
@@ -79,8 +80,18 @@ static_assert(kUsersPerWarp * kItemsPerLane == 32, "one seen-bit word per lane")
 constexpr int kSortAt = 6;
 constexpr int kWorstId = 0x7fffffff;  // the id of the worst possible entry
 
+// IEEE total order as an int32 compare (the order lax.top_k sorts by): +NaN
+// above +inf, -NaN below -inf and so below the (-inf, -1) seeds, so a -NaN
+// never enters a list; NaNs among themselves by payload.
+__device__ __forceinline__ int order_key(float s) {
+  const int b = __float_as_int(s);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// Every comparison of two scores in this file goes through better().
 __device__ __forceinline__ bool better(float s1, int i1, float s2, int i2) {
-  return s1 > s2 || (s1 == s2 && i1 < i2);
+  const int k1 = order_key(s1), k2 = order_key(s2);
+  return k1 > k2 || (k1 == k2 && i1 < i2);
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* src, bool valid) {

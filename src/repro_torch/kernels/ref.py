@@ -139,23 +139,35 @@ def ann_block_scores_ref(ue: torch.Tensor, centroids_q: torch.Tensor,
     return dots + unorm * radius[None, :].float()
 
 
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order float32 scores as IEEE total order does (the
+    order ``lax.top_k`` sorts by): ``b ^ ((b >> 31) & 0x7fffffff)`` of the
+    bits ``b``.  A larger key ranks higher: +NaN above +inf, -NaN below
+    -inf, NaNs among themselves by payload."""
+    b = scores.contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
 def merge_topk(carry_s: torch.Tensor, carry_i: torch.Tensor,
                scores: torch.Tensor, ids: torch.Tensor, k: int):
-    """First k of [carry | block] in (score desc, id asc) order.
+    """First k of [carry | block] in (score desc, id asc) order, scores
+    ordered by ``order_key``.
 
     ``lax.top_k`` prefers lower positions on ties, the carry precedes the
     block and holds lower ids, so the reference's order is (score desc,
-    id asc), with the carry's (-inf, -1) seeds first among -inf.
-    ``torch.topk`` promises no tie order, so the order is made explicit:
-    a stable sort by id, then a stable sort by score, descending."""
+    id asc) under IEEE total order, with the carry's (-inf, -1) seeds first
+    among -inf and every -NaN behind them.  ``torch.topk`` promises no tie
+    order and ``torch.sort`` puts every NaN first whatever its sign, so the
+    order is made explicit on the keys: a stable sort by id, then a stable
+    sort by key, descending."""
     cat_s = torch.cat([carry_s, scores], dim=1)
     cat_i = torch.cat([carry_i, ids], dim=1)
     by_id = torch.sort(cat_i, dim=1, stable=True).indices
     cat_s = torch.gather(cat_s, 1, by_id)
     cat_i = torch.gather(cat_i, 1, by_id)
-    by_score = torch.sort(cat_s, dim=1, descending=True, stable=True).indices
-    by_score = by_score[:, :k]
-    return torch.gather(cat_s, 1, by_score), torch.gather(cat_i, 1, by_score)
+    by_key = torch.sort(order_key(cat_s), dim=1, descending=True,
+                        stable=True).indices[:, :k]
+    return torch.gather(cat_s, 1, by_key), torch.gather(cat_i, 1, by_key)
 
 
 def score_block(ue: torch.Tensor, ie_blk: torch.Tensor, block_ids: torch.Tensor,

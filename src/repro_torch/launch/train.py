@@ -31,8 +31,14 @@ on cards) and only rank 0 prints and writes checkpoints:
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --preset lightgcn-smoke --mesh 4
 
-The legacy trainers raise ``NotImplementedError`` naming their ROADMAP
-item (``--arch gcn-cora``: A11; ``--arch deepfm|xdeepfm|dlrm_rm2``: A12).
+The legacy trainers (``train_gcn``, ``train_recsys``) run the
+reference's synthetic data at the SMOKE configs under the same loop, on
+the card unless ``--device cpu`` is given:
+
+  python -m repro_torch.launch.train --arch gcn-cora --steps 50
+  python -m repro_torch.launch.train --device cpu --arch deepfm --steps 20
+
+The LM archs raise ``NotImplementedError`` naming ROADMAP A12b.
 Checkpoints default to ``<tempdir>/repro_ckpt/<arch>``.
 """
 from __future__ import annotations
@@ -43,10 +49,20 @@ import os
 import tempfile
 import time
 
+import numpy as np
+import torch
+
 from repro_torch import configs as config_registry
 from repro_torch.api import (DataCfg, Experiment, ExperimentSpec, LoopCfg,
                              ModelCfg, PlanCfg, get_preset)
+from repro_torch.core.train_step import value_and_grad
+from repro_torch.core.graph import from_numpy
+from repro_torch.device import resolve_device, to_device
+from repro_torch.models import gcn
+from repro_torch.models import recsys_models as rm
+from repro_torch.optim import adam
 from repro_torch.pipeline.shard import parse_mesh
+from repro_torch.runtime.loop import LoopConfig, run_training
 
 PIPELINE_ARCHS = ("lightgcn", "ngcf", "gcn")
 
@@ -70,7 +86,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", help="model architecture "
                     f"(pipeline: {', '.join(PIPELINE_ARCHS)}; plus the "
-                    "legacy CPU trainers, not ported yet)")
+                    "legacy trainers: gcn-cora, deepfm, xdeepfm, dlrm_rm2)")
     ap.add_argument("--preset", help="start from a named spec "
                     "(repro_torch.api.preset_names())")
     ap.add_argument("--spec", help="start from a JSON ExperimentSpec file")
@@ -251,6 +267,136 @@ def _loss_span(report) -> str:
     return f"{report.losses[0]:.4f} -> {report.losses[-1]:.4f}"
 
 
+def gcn_train_step(cfg, g, x, labels, label_mask, opt):
+    """``step(state) -> (state, loss)``: the full-graph ``gcn.loss_fn``,
+    its gradients and one ``opt`` update of ``{"params", "opt"}``."""
+    def step(state):
+        loss, grads = value_and_grad(
+            lambda p: gcn.loss_fn(cfg, p, g, x, labels, label_mask),
+            state["params"])
+        p, o = opt.update(grads, state["opt"], state["params"])
+        return {"params": p, "opt": o}, loss
+
+    return step
+
+
+def train_gcn(steps: int, ckpt_dir: str, device="cuda", params=None):
+    """The reference's legacy GCN trainer: gcn-cora SMOKE on a synthetic
+    200-node, 1,600-edge graph with features and labels drawn from
+    ``np.random.default_rng(0)`` (the reference's bytes), Adam 1e-2,
+    checkpoints every ``steps // 2``.  ``params`` replaces the seeded init
+    (e.g. the reference's, carried across by ``convert.params_from_jax``)."""
+    dev = resolve_device(device)
+    cfg = config_registry.get("gcn_cora").SMOKE
+    rng = np.random.default_rng(0)
+    n = 200
+    src = rng.integers(0, n, 1600).astype(np.int32)
+    dst = rng.integers(0, n, 1600).astype(np.int32)
+    g = from_numpy(src, dst, n, device=dev)
+    x = to_device(rng.standard_normal((n, cfg.d_feat)).astype(np.float32),
+                  dev)
+    labels = to_device(rng.integers(0, cfg.n_classes, n).astype(np.int32),
+                       dev)
+    lmask = torch.ones((n,), dtype=torch.float32, device=dev)
+    if params is None:
+        params = gcn.init_params(cfg, 0, device=dev)
+    opt = adam(1e-2)
+    step = gcn_train_step(cfg, g, x, labels, lmask, opt)
+    state0 = {"params": params, "opt": opt.init(params)}
+    report = run_training(
+        LoopConfig(ckpt_dir=ckpt_dir, ckpt_every=max(steps // 2, 1),
+                   max_steps=steps, async_ckpt=False),
+        state0, lambda s, _: step(s))
+    print(f"[gcn] loss {_loss_span(report)}")
+    return report
+
+
+# (init, forward) of the CTR archs the legacy trainer runs
+def _recsys_fns(arch: str):
+    return {"deepfm": (rm.deepfm_init, rm.deepfm_forward),
+            "xdeepfm": (rm.xdeepfm_init, rm.xdeepfm_forward),
+            "dlrm_rm2": (rm.dlrm_init, rm.dlrm_forward)}[
+                config_registry.canon(arch)]
+
+
+def recsys_train_step(arch: str, cfg, opt):
+    """``step(state, *feats, labels) -> (state, loss)``: the BCE of the
+    arch's forward on ``feats`` (``ids``, or ``dense, ids`` for DLRM), its
+    gradients w.r.t. every param (tables included) and one dense ``opt``
+    update — the legacy trainer's step."""
+    _, fwd = _recsys_fns(arch)
+
+    def step(state, *args):
+        *feats, labels = args
+        loss, grads = value_and_grad(
+            lambda p: rm.bce_loss(fwd(cfg, p, *feats), labels),
+            state["params"])
+        p, o = opt.update(grads, state["opt"], state["params"])
+        return {"params": p, "opt": o}, loss
+
+    return step
+
+
+def dlrm_rowwise_step(cfg, opt):
+    """``step(params, opt_state, dense, ids, labels) -> (params, opt_state,
+    loss)``: DLRM's production step (the reference's
+    ``launch/cells.py::_recsys_train_rowwise``): gradients w.r.t. the
+    gathered rows and the MLPs, lazy row-wise AdaGrad (lr 0.01) IN PLACE
+    on the tables and ``opt_state["acc"]``, ``opt`` on the MLPs.  ``opt_state``
+    is ``{"acc": f32[F, V], "mlp": opt.init({"bot", "top"})}``."""
+    def step(params, opt_state, dense, ids, labels):
+        with torch.no_grad():
+            emb = rm.lookup_fields(params["tables"], ids)
+        mlps = {"bot": params["bot"], "top": params["top"]}
+        loss, (g_emb, g_mlp) = value_and_grad(
+            lambda t: rm.bce_loss(rm.dlrm_forward_from_emb(
+                cfg, dict(params, **t[1]), dense, t[0]), labels),
+            (emb, mlps))
+        tables, acc = rm.rowwise_adagrad_update(
+            params["tables"], opt_state["acc"], ids, g_emb)
+        new_mlps, mlp_state = opt.update(g_mlp, opt_state["mlp"], mlps)
+        return dict(params, tables=tables, **new_mlps), \
+            {"acc": acc, "mlp": mlp_state}, loss
+
+    return step
+
+
+def train_recsys(arch: str, steps: int, ckpt_dir: str, batch: int = 256,
+                 device="cuda", params=None):
+    """The reference's legacy CTR trainer: deepfm, xdeepfm or dlrm_rm2 at
+    SMOKE, Adam 1e-3, a fresh batch of ids, labels (and DLRM's dense
+    features) a step from ``np.random.default_rng(0)`` in the reference's
+    order, checkpoints every ``steps // 2``.  ``params`` replaces the
+    seeded init (e.g. the reference's, carried across by
+    ``convert.params_from_jax``)."""
+    dev = resolve_device(device)
+    cfg = config_registry.get(arch).SMOKE
+    rng = np.random.default_rng(0)
+    init, _ = _recsys_fns(arch)
+    if params is None:
+        params = init(cfg, 0, device=dev)
+    opt = adam(1e-3)
+    is_dlrm = config_registry.canon(arch) == "dlrm_rm2"
+    step = recsys_train_step(arch, cfg, opt)
+
+    def step_fn(state, _):
+        ids = to_device(rng.integers(0, cfg.vocab, (batch, cfg.n_sparse))
+                        .astype(np.int32), dev)
+        labels = to_device(rng.integers(0, 2, batch).astype(np.float32), dev)
+        if is_dlrm:
+            dense = to_device(rng.standard_normal((batch, cfg.n_dense))
+                              .astype(np.float32), dev)
+            return step(state, dense, ids, labels)
+        return step(state, ids, labels)
+
+    state0 = {"params": params, "opt": opt.init(params)}
+    report = run_training(
+        LoopConfig(ckpt_dir=ckpt_dir, ckpt_every=max(steps // 2, 1),
+                   max_steps=steps, async_ckpt=False), state0, step_fn)
+    print(f"[{arch}] loss {_loss_span(report)}")
+    return report
+
+
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     if args.preset or args.spec or args.arch in PIPELINE_ARCHS:
@@ -259,19 +405,21 @@ def main(argv=None):
     if args.arch is None:
         raise SystemExit("need --arch, --preset, or --spec")
     arch = config_registry.canon(args.arch)
-    # the reference's legacy CPU trainers
+    steps = args.steps if args.steps is not None else 100
+    ckpt_root = args.ckpt_dir if args.ckpt_dir is not None \
+        else DEFAULT_CKPT_ROOT
     if arch == "gcn_cora":
-        raise NotImplementedError("the legacy gcn-cora trainer needs "
-                                  "models/gcn.py, not ported yet (ROADMAP "
-                                  "A11)")
-    if arch in ("deepfm", "xdeepfm", "dlrm_rm2"):
-        raise NotImplementedError(f"the legacy {arch} trainer needs "
-                                  "models/recsys_models.py, not ported yet "
-                                  "(ROADMAP A12)")
-    raise SystemExit(
-        f"CPU trainer for {arch!r} not wired; pipeline archs: "
-        f"{', '.join(PIPELINE_ARCHS)}; also gcn-cora (ROADMAP A11), "
-        f"deepfm, xdeepfm, dlrm_rm2 (A12)")
+        train_gcn(steps, f"{ckpt_root}/{arch}", device=args.device)
+    elif arch in ("deepfm", "xdeepfm", "dlrm_rm2"):
+        train_recsys(arch, steps, f"{ckpt_root}/{arch}", device=args.device)
+    elif arch in config_registry.UNPORTED:
+        raise NotImplementedError(f"the {arch} arch is in the LM pool, not "
+                                  "ported yet (ROADMAP A12b)")
+    else:
+        raise SystemExit(
+            f"CPU trainer for {arch!r} not wired; pipeline archs: "
+            f"{', '.join(PIPELINE_ARCHS)}; also gcn-cora, deepfm, xdeepfm, "
+            f"dlrm_rm2 (the LM archs are ROADMAP A12b)")
 
 
 if __name__ == "__main__":

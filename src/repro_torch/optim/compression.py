@@ -31,6 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.dist.collectives import all_gather_rows
+from repro_torch.kernels.ref import order_key
 
 __all__ = [
     "quantize_int8", "dequantize_int8", "compressed_psum_int8",
@@ -101,11 +102,14 @@ def topk_allgather_sum(vals: torch.Tensor, idx: torch.Tensor, shape,
 
 def topk_sparsify(g: torch.Tensor, k: int):
     """Flatten, keep the k largest |.|, return (values, indices, residual).
-    Ties break toward the lower index, as ``lax.top_k``'s do (``torch.topk``
-    promises no order among ties): a stable descending sort keeps equal
-    magnitudes in index order."""
+    Magnitudes are ordered as ``lax.top_k`` orders them, by IEEE total
+    order (``kernels.ref.order_key``: NaNs above +inf and among themselves
+    by payload, where ``torch.sort`` ties them), and ties break toward the
+    lower index (``torch.topk`` promises no order among ties): a stable
+    descending sort keeps equal keys in index order."""
     flat = g.reshape(-1)
-    order = torch.sort(flat.abs(), descending=True, stable=True).indices
+    order = torch.sort(order_key(flat.abs()), descending=True,
+                       stable=True).indices
     idx = order[:k]
     kept = flat[idx]
     residual = flat.clone()

@@ -1,5 +1,6 @@
 """Functional optimizers (init/update pairs): the port of
-``repro/optim/optimizers.py::sgd`` and ``adam``.
+``repro/optim/optimizers.py::sgd`` and ``adam``, with its
+``WarmupLinearLR`` schedule and ``global_norm_clip``.
 
 Parameters are nested dicts and lists of tensors (NGCF's ``w1``/``w2``
 lists, GCN's ``layers`` list of dicts).  The updates follow the
@@ -11,6 +12,7 @@ leave their inputs as they were, as the reference's pure functions do.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -116,3 +118,32 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
 
     base_lr = lr
     return Optimizer(init, update)
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmupLinearLR:
+    """LR ramp used with the large-batch schedule (paper §7.1 pairs the
+    warm-up batch with linearly-scaled LR): peak_lr · min(1, t / warmup),
+    in float32 as the reference computes it.  The division is by a float32
+    tensor: torch would multiply by the reciprocal of a Python scalar."""
+    peak_lr: float
+    warmup_steps: int
+
+    def __call__(self, t) -> torch.Tensor:
+        tf = torch.as_tensor(t).to(torch.float32)
+        ramp = tf / torch.tensor(float(max(self.warmup_steps, 1)),
+                                 dtype=torch.float32, device=tf.device)
+        return self.peak_lr * torch.clamp(ramp, max=1.0)
+
+
+def global_norm_clip(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / ‖grads‖), ‖grads‖): the global
+    float32 L2 norm over every leaf, summed in the reference's leaf order
+    (``tree_paths``: dict keys sorted)."""
+    leaves = [g for _, g in tree_paths(grads)]
+    norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                          for g in leaves))
+    scale = torch.clamp(torch.tensor(float(max_norm), dtype=torch.float32,
+                                     device=norm.device)
+                        / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: g * scale, grads), norm

@@ -12,6 +12,8 @@ import torch
 from repro_torch.kernels import launch_counts, ops, ref
 from repro_torch.kernels.spmm import build_csr_by_dst
 from repro_torch.optim.optimizers import tree_leaves
+from topk_nan_cases import CASES as NAN_CASES
+from topk_nan_cases import fused_case
 
 pytestmark = pytest.mark.cuda
 
@@ -624,3 +626,22 @@ def test_int8_row_quantizer_on_card_equals_numpy(dev):
     np.testing.assert_array_equal(tq.cpu().numpy(), q)
     np.testing.assert_array_equal(tscale.cpu().numpy().view(np.int32),
                                   scale.view(np.int32))
+
+
+@pytest.mark.parametrize("case", NAN_CASES)
+def test_fused_topk_kernel_matches_plain_on_nan(dev, case):
+    """±NaN of two payloads and ±inf among finite rows: the kernel orders
+    scores by IEEE total order, as the plain version does (which
+    ``tests/test_torch_topk_nan.py`` holds to the reference on the CPU);
+    ids and score bits equal."""
+    ue, ie, seen, mask, k, n = fused_case(case, np.random.default_rng(3))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (ue, ie, seen, mask)]
+    for blk in (7, 40):
+        s_k, i_k = ops.fused_topk_score(*args, k=k, n_items=n,
+                                        item_block=blk, impl="cuda")
+        s_p, i_p = ref.fused_topk_score_ref(*args, k=k, n_items=n,
+                                            item_block=blk)
+        assert torch.equal(i_k, i_p)
+        assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+

@@ -143,3 +143,45 @@ def test_ranking_metrics_and_hits_equal_reference():
         jmetrics.ranking_metrics(ids, test_pos, ks=(1, 5, 12, 40))
     with pytest.raises(ValueError, match="ranked rows"):
         metrics.ranked_hits(ids, test_pos[:3])
+
+
+@pytest.mark.parametrize("case", ["empty_lists", "minus_one_slots",
+                                  "duplicate_held_out", "k_past_catalogue",
+                                  "all_empty", "no_rows", "held_out_minus_one",
+                                  "large_ids"])
+def test_ranked_hits_vectorised_bitwise_equal_reference(case):
+    """The packed-key ``ranked_hits`` against the reference's per-row
+    ``np.isin`` loop, bitwise, on the cases the packing must get right."""
+    rng = np.random.default_rng(len(case))
+    n, k, ni = 40, 10, 25
+    ids = rng.integers(0, ni, (n, k)).astype(np.int32)
+    test_pos = [rng.integers(0, ni, rng.integers(0, 6)) for _ in range(n)]
+    if case == "empty_lists":
+        test_pos = [p if u % 3 else np.zeros(0, np.int64)
+                    for u, p in enumerate(test_pos)]
+    elif case == "minus_one_slots":
+        ids[rng.random(ids.shape) < 0.4] = -1
+    elif case == "duplicate_held_out":
+        test_pos = [np.concatenate([p, p, p[:1]]) for p in test_pos]
+    elif case == "k_past_catalogue":          # k > catalogue: -1 tails
+        ni, k = 6, 10
+        ids = np.full((n, k), -1, np.int32)
+        for u in range(n):
+            ids[u, :ni] = rng.permutation(ni)
+        test_pos = [rng.integers(0, ni, rng.integers(0, 4)) for _ in range(n)]
+    elif case == "all_empty":
+        test_pos = [np.zeros(0, np.int64)] * n
+    elif case == "no_rows":
+        ids, test_pos = np.zeros((0, k), np.int32), []
+    elif case == "held_out_minus_one":        # a -1 in a list marks -1 slots
+        ids[::2, -1] = -1
+        test_pos = [np.append(p, -1) if u % 4 == 0 else p
+                    for u, p in enumerate(test_pos)]
+    elif case == "large_ids":
+        ids = rng.integers(-1, 2**31 - 1, (n, k)).astype(np.int32)
+        test_pos = [np.concatenate([ids[u, :2], rng.integers(0, 2**31 - 1, 3)])
+                    for u in range(n)]
+    got = metrics.ranked_hits(ids, test_pos)
+    want = jmetrics.ranked_hits(ids, test_pos)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

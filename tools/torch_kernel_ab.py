@@ -6,6 +6,8 @@ in one process.
         [--variants 128-4-1,...]
     python3 tools/torch_kernel_ab.py --parent DIR --kernel embedding_bag
         [--turns PCCP]
+    python3 tools/torch_kernel_ab.py --parent DIR --kernel fused_topk_score
+        [--turns PCCP]
 
 DIR holds an unpacked parent commit (``git archive``).
 
@@ -20,6 +22,15 @@ bags of one of 349,184 rows, D = 128): host µs per wrapper call and per
 device µs (100 calls in a CUDA graph), µs between CUDA events, and each
 piece of the wrapper's host path (the checks, the allocation, the stream
 query, the C call with its launch), 10,000 calls each.
+
+``--kernel fused_topk_score``: the parent's ``topk_score.cu`` (the same C
+interface) built beside the change's and called with the same arguments.
+At the serving shape (256 users of D = 128 against 53,248 items, k = 20,
+64 seen slots a user, half of them live): the parent, the change and the
+plain version give the same ids and score bits on finite scores; on
+``chip_smoke.py``'s ``nan_inf`` case the change equals the plain version
+bit for bit (the parent's is reported); then ms per call (CUDA events
+around 50 calls) in the order of ``--turns``.
 
 ``--kernel sddmm`` (the default) needs a parent whose ``sddmm_f32`` takes
 the edge-order C interface (op, x, y, src, dst, mask, coeff, out, E, D,
@@ -147,17 +158,21 @@ def events_ms(torch, fn, reps: int = 10) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=pathlib.Path)
-    ap.add_argument("--kernel", choices=("sddmm", "embedding_bag"),
+    ap.add_argument("--kernel", choices=("sddmm", "embedding_bag",
+                                         "fused_topk_score"),
                     default="sddmm")
     ap.add_argument("--variants", default="",
                     help="sddmm: comma-separated C-U-B: chunk, unroll, min "
                          "blocks per SM")
     ap.add_argument("--turns", default="PCCP",
-                    help="embedding_bag: the order of the timed turns, P "
-                         "for the parent and C for the change")
+                    help="embedding_bag, fused_topk_score: the order of "
+                         "the timed turns, P for the parent and C for the "
+                         "change")
     args = ap.parse_args()
     if args.kernel == "embedding_bag":
         return main_embedding_bag(args)
+    if args.kernel == "fused_topk_score":
+        return main_topk(args)
     return main_sddmm(args)
 
 
@@ -472,6 +487,109 @@ def main_embedding_bag(args) -> int:
                       "bitwise": bool(same) and all(
                           all(r.values()) for r in same.values()),
                       "card": smi}), flush=True)
+    return 0
+
+
+TOPK_USERS, TOPK_K, TOPK_SEEN = 256, 20, 64
+
+
+def main_topk(args) -> int:
+    """``fused_topk_score`` of the parent against the change, in one
+    process (see the module's docstring)."""
+    import math
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import _topk_case
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.topk_score import (fused_topk_score_cuda,
+                                                split_plan)
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "topk_score_parent.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(args.parent.resolve()
+                        / "src/repro_torch/kernels/csrc/topk_score.cu")],
+                   check=True)
+    _build.build_all(("topk_score",))
+    lib = ctypes.CDLL(str(so))
+    fn = lib.fused_topk_score_f32
+    fn.argtypes = _build.SIGNATURES["topk_score"]["fused_topk_score_f32"]
+    fn.restype = _I
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def parent(ue, table, seen, smask, k, n_items):
+        b, d = ue.shape
+        out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+        splits, per = split_plan(b, n_items, k, sms)
+        part_s, part_i = (out_s, out_i) if splits == 1 else (
+            torch.empty((splits, b, k), dtype=torch.float32, device=dev),
+            torch.empty((splits, b, k), dtype=torch.int32, device=dev))
+        bits = torch.empty((b, math.ceil(n_items / 32)), dtype=torch.int32,
+                           device=dev)
+        vec4 = d % 4 == 0 and ue.data_ptr() % 16 == 0 \
+            and table.data_ptr() % 16 == 0
+        err = fn(ue.data_ptr(), table.data_ptr(), seen.data_ptr(),
+                 smask.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                 part_s.data_ptr(), part_i.data_ptr(), bits.data_ptr(), b, d,
+                 table.shape[0], n_items, seen.shape[1], k, per, splits,
+                 int(vec4), *_build.stream_of(ue))
+        if err:
+            raise RuntimeError(f"parent fused_topk_score: error {err}")
+        return out_s, out_i
+
+    def change(ue, table, seen, smask, k, n_items):
+        return fused_topk_score_cuda(ue, table, seen, smask, k=k,
+                                     n_items=n_items)
+
+    def plain(ue, table, seen, smask, k, n_items):
+        return ref.fused_topk_score_ref(ue, table, seen, smask, k=k,
+                                        n_items=n_items, item_block=1024)
+
+    def same(a, b):
+        return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
+            and torch.equal(a[1], b[1])
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ue = torch.randn((TOPK_USERS, D), generator=gen, device=dev)
+    table = torch.randn((N_ITEMS, D), generator=gen, device=dev)
+    seen = torch.randint(0, N_ITEMS, (TOPK_USERS, TOPK_SEEN), generator=gen,
+                         device=dev, dtype=torch.int32)
+    smask = torch.rand((TOPK_USERS, TOPK_SEEN), generator=gen,
+                       device=dev) < 0.5
+    main = (ue, table, seen, smask, TOPK_K, N_ITEMS)
+    case = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in _topk_case(np.random.default_rng(0), "nan_inf")[:4]]
+    nan_inf = (*case, 20, 1000)
+    eq = {"main_change_eq_parent": same(change(*main), parent(*main)),
+          "main_change_eq_plain": same(change(*main), plain(*main)),
+          "nan_inf_change_eq_plain": same(change(*nan_inf), plain(*nan_inf)),
+          "nan_inf_parent_eq_plain": same(parent(*nan_inf), plain(*nan_inf))}
+    print(json.dumps({"bitwise": eq}), flush=True)
+    if not (eq["main_change_eq_parent"] and eq["main_change_eq_plain"]
+            and eq["nan_inf_change_eq_plain"]):
+        raise RuntimeError("fused_topk_score: not bitwise equal")
+    sides = {"P": lambda: parent(*main), "C": lambda: change(*main)}
+    rows = {"P": [], "C": []}
+    for who in args.turns.upper():
+        ms = events_ms(torch, sides[who], reps=50)
+        rows[who].append(ms)
+        print(json.dumps({"turn": who, "ms": ms}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernel": "fused_topk_score", "card": smi,
+                      "shape": {"users": TOPK_USERS, "items": N_ITEMS, "d": D,
+                                "k": TOPK_K, "seen": TOPK_SEEN},
+                      "parent_ms": rows["P"], "change_ms": rows["C"],
+                      "bitwise": eq}), flush=True)
     return 0
 
 
