@@ -28,6 +28,23 @@ Phases (any failure exits non-zero before the last line is printed):
      ogb_products shape and ``forward_batched`` at the molecule shape;
      each run's first loss and gradients held against the CPU on a slice,
      its step ms, memory and cuts (``reduced``) printed;
+  3c. the LM pool (``lm``, one line per run; the LM_* constants below)
+     on an otherwise empty card, weights from the port's ``init_params``
+     in bfloat16: ``flash_attention`` against ``attention_ref`` in float32
+     at granite's head shape (causal, banded, softcap) and one layer's
+     chunked attention timed beside ``F.scaled_dot_product_attention``;
+     gemma2-2b FULL (26 layers) through ``prefill`` at 32,768 tokens, 16
+     ``decode_step``s at 32,768 tokens of cache and 3 Adam ``train_step``s
+     of 4 microbatches at 4,096 tokens; granite-3-8b FULL through prefill
+     and decode; mixtral-8x7b at full width, depth cut to what a 2-step
+     Adam step fits, through all three; kimi-k2 (384 experts + 1 shared)
+     and nemotron-4-340b at full width and 1 layer through prefill and
+     decode, nemotron also through adafactor steps; each run's prefill
+     held against ``forward``'s last position and a decode step after a
+     prefill's cache against ``forward`` on the extended sequence; every
+     fit computed before allocating and every cut listed in "reduced";
+     the share of the dtype's peak that ``launch/analytic.py``'s FLOPs
+     give;
   4. drive the serving path at the LightGCN FULL width
      (``src/repro/configs/lightgcn.py:7``: 349,184 users x 53,248 items,
      D = 128, 3 layers) with 2^24 requested edges: data -> BipartiteCSR
@@ -98,6 +115,7 @@ Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -293,6 +311,45 @@ BERT4REC_USERS = 64         # bert4rec_retrieve over the whole catalogue
 GCN_NODES, GCN_EDGES, GCN_FEAT, GCN_CLASSES = 2_449_029, 61_859_140, 100, 47
 GCN_STEPS, GCN_CHECK_NODES = 3, 65_536
 MOL_GRAPHS, MOL_NODES, MOL_EDGES, MOL_FEAT, MOL_CLASSES = 128, 30, 64, 64, 2
+
+# the lm phase (ROADMAP A12b): the LM pool at full width, bf16 weights from
+# repro_torch.models.transformer.init_params(seed SEED), each run's fit
+# computed before it allocates (lm_* byte estimates below, beside
+# LM_RESERVE).  LM_SEQ: the configs' prefill_32k / decode_32k shapes;
+# LM_TRAIN_SEQ: train_4k's (src/repro/configs/gemma2_2b.py:20-23).  Each
+# run's batches are capped by LM_RUNS (the phase's 120 s budget) below what
+# fits; the caps and cuts go into the run's "reduced".
+LM_SEQ, LM_DECODE_STEPS, LM_TRAIN_SEQ = 32_768, 16, 4_096
+LM_RESERVE = 3 << 30
+LM_RUNS = {
+    # arch: layers (None: FULL's; "fit": the most a 2-step Adam step fits),
+    # prefill / decode batch caps, check sequence, train (global batch,
+    # microbatches, steps, optimizer, lr; seq "fit": the longest that fits)
+    "gemma2_2b": dict(layers=None, prefill=2, decode=128, check=8_192,
+                      train=(4, 4, 3, "adam", 1e-3, LM_TRAIN_SEQ)),
+    "granite_3_8b": dict(layers=None, prefill=1, decode=128, check=4_096,
+                         train=None),
+    "mixtral_8x7b": dict(layers="fit", prefill=1, decode=128, check=8_192,
+                         train=(2, 2, 2, "adam", 1e-3, LM_TRAIN_SEQ)),
+    "kimi_k2_1t_a32b": dict(layers=1, prefill=1, decode=128, check=1_024,
+                            train=None),
+    "nemotron_4_340b": dict(layers=1, prefill=1, decode=128, check=4_096,
+                            train=(1, 1, 2, "adafactor", 1e-2, "fit")),
+}
+# the checks, relative in the norm: prefill's logits against forward's
+# last position, and a decode step after a prefill's cache against forward
+# on the extended sequence.  On a float32 copy of the weights wherever it
+# fits (all but kimi-k2): LM_F32_RTOL, float32 sums in other orders.  On
+# the run's bf16 weights: prefill LM_PREFILL_RTOL (the same ops but the
+# head's matmul shape, ~1 bf16 ulp); decode LM_DECODE_RTOL, a bound on two
+# bf16 orderings of attention (decode's one softmax against the tiles'
+# bf16 accumulator) carried through up to 40 layers: it catches a wrong
+# position or cache (an O(1) error), not the last bits
+LM_F32_RTOL, LM_PREFILL_RTOL, LM_DECODE_RTOL = 1e-4, 1e-2, 1e-1
+# flash_attention against attention_ref in float32: the reference's own
+# test tolerance (tests/test_attention.py), at granite's head shape
+ATTN_RTOL, ATTN_ATOL, ATTN_SEQ, ATTN_WINDOW = 2e-4, 2e-5, 4_096, 1_024
+PEAK_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores (H100 SXM)
 
 
 class SmokeFailure(RuntimeError):
@@ -1201,6 +1258,446 @@ def models_phase(torch, dev) -> None:
         emit(rec)
     emit({"phase": "models", "seconds": time.perf_counter() - t0,
           "allocated_at_start_bytes": start})
+
+
+# ------------------------------------------------------------------ lm
+def lm_param_bytes(cfg) -> int:
+    """The params' bytes in bfloat16, the router in float32."""
+    router = cfg.n_layers * cfg.d_model * cfg.n_experts
+    return 2 * cfg.param_count() + 2 * router
+
+
+def lm_cache_bytes(cfg, batch: int, seq: int) -> int:
+    return 2 * cfg.n_layers * batch * cfg.n_kv_heads * seq * cfg.head_dim * 2
+
+
+def lm_act_bytes(cfg, rows: int, seq: int, train: bool) -> float:
+    """A pass's transient bytes at [rows, seq]: one layer's FFN hidden
+    (bf16 and float32 copies, 12 bytes a column; a MoE token's k slots at
+    the capacity factor, its dispatched rows and combined outputs),
+    attention (4 tiles of TILE_BYTES; when training, one layer's saved
+    float32 scores on the re-forward, 4 copies of [rows, H, seq, seq]),
+    when training the float32 logits (5 copies: the softcap's and
+    logsumexp's saved tensors and gradients) and the checkpointed layer
+    inputs, and a few [t, D] activations."""
+    from repro_torch.models.attention import TILE_BYTES
+    t = rows * seq
+    if cfg.is_moe:
+        width = (cfg.top_k * cfg.capacity_factor + cfg.shared_experts) \
+            * cfg.moe_d_ff
+        moe = 4 * t * cfg.top_k * cfg.d_model * 2
+    else:
+        width, moe = cfg.d_ff, 0
+    act = t * width * 12 + moe + 8 * t * cfg.d_model * 2
+    if not train:
+        return act + 4 * TILE_BYTES
+    return act + 4 * rows * cfg.n_heads * seq * seq * 4 \
+        + 5 * t * cfg.vocab * 4 + cfg.n_layers * t * cfg.d_model * 2
+
+
+def lm_train_need(cfg, train, seq: int) -> float:
+    """Peak bytes of ``train``'s steps from bf16 params, by the dtypes
+    C2 gives: Adam turns the params float32 at step 1 and the moments to
+    the gradients' dtype (float32 when accumulated, or when the params
+    are); adafactor keeps them.  The larger of a microbatch's backward
+    (state, accumulator, its gradients, a second copy of the stacked
+    layers' and of one table's, activations) and an update (old state,
+    gradients, new state, 1 GiB of pieces)."""
+    gb, micro, steps, opt_name, _, _ = train
+    n = lm_param_bytes(cfg) / 2
+    table = cfg.vocab * cfg.d_model
+    stacked = n - 2 * table                          # the [L, ...] leaves
+    act = lm_act_bytes(cfg, gb // micro, seq, True)
+    if opt_name == "adafactor":
+        return max(4 * n + 2 * (stacked + table) + act, 6 * n + (1 << 30))
+    p, mv, back, upd = 2, 2, 0.0, 0.0
+    for _ in range(steps):
+        g = 4 if micro > 1 or p == 4 else 2
+        back = max(back, (p + 2 * mv + (4 if micro > 1 else 0) + g) * n
+                   + g * (stacked + table))
+        new_mv = max(mv, g)
+        upd = max(upd, p + 2 * mv + g + 4 + 2 * new_mv)
+        p, mv = 4, new_mv
+    return max(back + act, upd * n + (1 << 30))
+
+
+def lm_share(flops: float, ms: float, dtype: str) -> float:
+    """Share of the dtype's dense peak that ``flops`` in ``ms`` give."""
+    peak = PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32
+    return flops / (ms / 1e3) / peak
+
+
+def lm_check(torch, dev, tt, cfg, params, toks, rtol: tuple) -> dict:
+    """prefill's logits against forward's last position, and a decode
+    step at position seq - 1 after a prefill of the first seq - 1 tokens
+    against the same, within ``rtol`` = (prefill, decode)."""
+    seq = toks.shape[1]
+    want = tt.forward(cfg, params, toks)[:, -1]
+    got, _ = tt.prefill(cfg, params, toks)
+    pre = rel_norm(got, want)
+    del got
+    _, part = tt.prefill(cfg, params, toks[:, :-1])
+    cache = tt.init_kv_cache(cfg, 1, seq, device=dev)
+    for n in ("k", "v"):
+        cache[n] = cache[n].to(part[n].dtype)
+        cache[n][:, :, :, :seq - 1] = part[n]
+    del part
+    dec, _ = tt.decode_step(cfg, params, toks[:, -1:], cache, seq - 1)
+    d_err = rel_norm(dec, want)
+    dtype = str(params["embed"].dtype).split(".")[-1]
+    require(all_finite(torch, [want, dec]) and pre <= rtol[0]
+            and d_err <= rtol[1],
+            f"lm {cfg.name} ({dtype}): prefill vs forward rel {pre}, decode "
+            f"vs forward rel {d_err}, over {rtol}")
+    return {"prefill_vs_forward_rel": pre, "decode_vs_forward_rel": d_err,
+            "decode_top1_agrees": bool(dec.argmax() == want.argmax()),
+            "tolerance": list(rtol)}
+
+
+def lm_checks(torch, dev, tt, cfg, params, seq: int, free: float,
+              gen) -> dict:
+    """``lm_check`` on one sequence of ``seq`` tokens, on the run's bf16
+    weights and on a float32 copy where it fits beside them (``free``:
+    the card's bytes before the run).  A MoE
+    config runs at a capacity factor that drops nothing (e / k): with
+    drops the two passes route different token sets, in the reference
+    too."""
+    import dataclasses
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
+    out = {"seq": seq, "capacity_factor": cfg.capacity_factor,
+           "bfloat16": lm_check(torch, dev, tt, cfg, params, toks,
+                                (LM_PREFILL_RTOL, LM_DECODE_RTOL))}
+    f32_bytes = 2 * lm_param_bytes(cfg)
+    if f32_bytes + lm_param_bytes(cfg) + lm_act_bytes(
+            cfg, 1, seq, False) + 3 * seq * cfg.vocab * 4 <= free:
+        from repro_torch.optim.optimizers import tree_map
+        p32 = tree_map(lambda p: p.to(torch.float32), params)
+        out["float32"] = lm_check(torch, dev, tt, cfg, p32, toks,
+                                  (LM_F32_RTOL, LM_F32_RTOL))
+        del p32
+    else:
+        out["float32"] = (f"not run: a float32 copy ({f32_bytes / 1e9:.1f} "
+                          "GB) does not fit beside the bf16 weights")
+    return out
+
+
+def lm_prefill(torch, dev, tt, analytic, cfg, params, batch: int,
+               gen) -> dict:
+    """One synchronised ``prefill`` of [batch, LM_SEQ] tokens."""
+    toks = torch.randint(0, cfg.vocab, (batch, LM_SEQ), generator=gen,
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), ms = timed(torch, lambda: tt.prefill(cfg, params,
+                                                          toks))
+    require(all_finite(torch, [logits])
+            and tuple(logits.shape) == (batch, cfg.vocab)
+            and tuple(cache["k"].shape) == (cfg.n_layers, batch,
+                                            cfg.n_kv_heads, LM_SEQ,
+                                            cfg.head_dim),
+            f"lm {cfg.name}: prefill's logits or cache")
+    cost = analytic.lm_cost("prefill", cfg, dict(
+        kind="prefill", seq_len=LM_SEQ, global_batch=batch), analytic.ONE_CARD)
+    return {"batch": batch, "seq": LM_SEQ, "ms": ms,
+            "tokens_per_s": batch * LM_SEQ / (ms / 1e3),
+            "cache_bytes": lm_cache_bytes(cfg, batch, LM_SEQ),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "analytic_flops": cost["flops"],
+            "bf16_peak_share": lm_share(cost["flops"], ms, "bfloat16")}
+
+
+def lm_decode(torch, dev, tt, analytic, cfg, params, batch: int,
+              gen) -> dict:
+    """LM_DECODE_STEPS greedy ``decode_step``s at positions LM_SEQ - 16 ..
+    LM_SEQ - 1 of a [batch, LM_SEQ] cache of N(0, 1) keys and values."""
+    cache = tt.init_kv_cache(cfg, batch, LM_SEQ, device=dev)
+    for n in ("k", "v"):
+        cache[n].normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(LM_DECODE_STEPS):
+        pos = LM_SEQ - LM_DECODE_STEPS + i
+        (logits, cache), t = timed(torch, lambda: tt.decode_step(
+            cfg, params, tok, cache, pos))
+        require(all_finite(torch, [logits]),
+                f"lm {cfg.name}: decode step {i} not finite")
+        ms.append(t)
+        tok = logits.argmax(-1, keepdim=True)
+    med = float(np.median(ms[1:]))
+    cost = analytic.lm_cost("decode", cfg, dict(
+        kind="decode", seq_len=LM_SEQ, global_batch=batch),
+        analytic.ONE_CARD)
+    return {"batch": batch, "cache_tokens": LM_SEQ,
+            "steps": LM_DECODE_STEPS, "first_ms": ms[0],
+            "ms_per_token": med, "tokens_per_s": batch / (med / 1e3),
+            "cache_bytes": lm_cache_bytes(cfg, batch, LM_SEQ),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "analytic_hbm_bytes": cost["hbm_bytes"],
+            "hbm_share": cost["hbm_bytes"] / (med / 1e3) / PEAK_BYTES,
+            "bf16_peak_share": lm_share(cost["flops"], med, "bfloat16")}
+
+
+def lm_train(torch, dev, tt, analytic, cfg, train, seq: int, gen) -> dict:
+    """``train_step`` for the run's steps from the seeded init, on seeded
+    tokens and labels; per step host ms around the synchronised step, the
+    params' dtype it ran in, memory after it, and the share of that
+    dtype's peak.  Only this frame holds the params, so an update's old
+    and new state are the only two copies."""
+    from repro_torch.core.train_step import value_and_grad
+    from repro_torch.optim import adafactor, adam
+    gb, micro, steps, opt_name, lr, _ = train
+    params = tt.init_params(cfg, SEED, device=dev)
+    opt = adam(lr) if opt_name == "adam" else adafactor(lr)
+    batches = [(torch.randint(0, cfg.vocab, (gb, seq), generator=gen,
+                              device=dev),
+                torch.randint(0, cfg.vocab, (gb, seq), generator=gen,
+                              device=dev)) for _ in range(steps)]
+    cost = analytic.lm_cost("train", cfg, dict(
+        kind="train", seq_len=seq, global_batch=gb, microbatches=micro),
+        analytic.ONE_CARD)
+    # one microbatch's loss and gradients first, untimed into the steps:
+    # the process's first backward pays one-time costs (warmup_s; ~9 s for
+    # gemma2 on an H100 80GB, most of it once per process)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = gb // micro
+    value_and_grad(lambda p: tt.lm_loss(cfg, p, batches[0][0][:rows],
+                                        batches[0][1][:rows]), params)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, between, dtypes = [], [], [], []
+    for toks, labels in batches:
+        dtypes.append(str(params["embed"].dtype).split(".")[-1])
+        (params, state, loss), t = timed(torch, lambda: tt.train_step(
+            cfg, opt, params, state, toks, labels, n_microbatches=micro))
+        ms.append(t)
+        losses.append(float(loss))
+        between.append(torch.cuda.memory_allocated())
+    require(all(np.isfinite(losses)), f"lm {cfg.name}: losses {losses}")
+    return {"optimizer": opt_name, "lr": lr, "global_batch": gb,
+            "microbatches": micro, "seq": seq, "losses": losses,
+            "warmup_s": warmup_s,
+            "steps_ms": ms, "first_step_ms": ms[0],
+            "step_ms": float(np.median(ms[1:])) if len(ms) > 1 else ms[0],
+            "tokens_per_s": gb * seq / (float(np.median(ms[1:]))
+                                        / 1e3) if len(ms) > 1 else None,
+            "step_dtypes": dtypes,
+            "final_param_dtype": str(params["embed"].dtype).split(".")[-1],
+            "between_steps_bytes": between,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "analytic_flops": cost["flops"],
+            "peak_share_by_step": [lm_share(cost["flops"], m, d)
+                                   for m, d in zip(ms, dtypes)]}
+
+
+def lm_plan(torch, arch: str) -> tuple:
+    """(config, reduced, prefill batch, decode batch, train seq, the train
+    step's estimated bytes, free bytes) for ``arch``'s run, computed from
+    the card's free memory before the run allocates anything."""
+    import dataclasses
+    from repro_torch import configs
+    mod = configs.get(arch)
+    spec, full = LM_RUNS[arch], mod.FULL
+    free = torch.cuda.mem_get_info()[0] - LM_RESERVE
+    train, reduced = spec["train"], []
+    layers = spec["layers"]
+    if layers == "fit":
+        fits = [n for n in range(1, full.n_layers + 1)
+                if lm_train_need(dataclasses.replace(full, n_layers=n), train,
+                                 train[5]) <= free]
+        require(fits, f"lm {arch}: not one layer fits a train step")
+        layers = fits[-1]
+        if layers < full.n_layers:
+            reduced.append(f"depth {full.n_layers} -> {layers}: the most a "
+                           f"{train[2]}-step {train[3]} train_step fits "
+                           "beside its C2 float32 state")
+    elif layers is not None:
+        reduced.append(
+            f"depth {full.n_layers} -> {layers}: the FULL model's "
+            f"{lm_param_bytes(full) / 1e9:.0f} GB of bf16 params exceed the "
+            "card; full width kept")
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    params_b = lm_param_bytes(cfg)
+    per_seq = lm_cache_bytes(cfg, 1, LM_SEQ) + lm_act_bytes(cfg, 1, LM_SEQ,
+                                                            False)
+    pre_fit = int((free - params_b) // per_seq)
+    pre = min(pre_fit, spec["prefill"])
+    require(pre >= 1, f"lm {arch}: no prefill sequence fits")
+    shape_b = mod.SHAPES["prefill_32k"]["global_batch"]
+    reduced.append(f"prefill batch {shape_b} -> {pre}: "
+                   + ("the phase's 120 s budget (" + str(pre_fit)
+                      + " would fit)" if pre < pre_fit else "what fits"))
+    dec_fit = int((free - params_b - lm_act_bytes(cfg, 128, 1, False))
+                  // lm_cache_bytes(cfg, 1, LM_SEQ))
+    dec = min(dec_fit, spec["decode"])
+    require(dec >= 1, f"lm {arch}: no decode sequence fits")
+    shape_b = mod.SHAPES["decode_32k"]["global_batch"]
+    if dec < shape_b:
+        reduced.append(f"decode batch {shape_b} -> {dec}: what fits "
+                       f"({lm_cache_bytes(cfg, 1, LM_SEQ) / 1e9:.2f} GB of "
+                       "cache a sequence)")
+    seq, need = None, None
+    if train is None:
+        own = lm_train_need(cfg, (1, 1, 2, mod.OPTIMIZER, None, 512), 512)
+        reduced.append(f"no train_step: a 2-step {mod.OPTIMIZER} step at "
+                       f"{cfg.n_layers} layer(s) needs ~{own / 1e9:.0f} GB "
+                       f"(lm_train_need), {free / 1e9:.0f} GB are free")
+    else:
+        seq = train[5]
+        if seq == "fit":
+            fits = [n for n in (4_096, 2_048, 1_024, 512)
+                    if lm_train_need(cfg, train, n) <= free]
+            seq = fits[0] if fits else None
+        if seq is not None:
+            need = lm_train_need(cfg, train, seq)
+            shape = mod.SHAPES["train_4k"]
+            rows = shape["global_batch"] // shape["microbatches"]
+            logits_gb = rows * shape["seq_len"] * full.vocab * 4 / 1e9
+            reduced.append(
+                f"train global batch {shape['global_batch']} x "
+                f"{shape['seq_len']} -> {train[0]} x {seq} in {train[1]} "
+                f"microbatch(es): one {rows}-sequence microbatch's float32 "
+                f"logits alone are {logits_gb:.0f} GB")
+    return cfg, reduced, pre, dec, seq, need, free
+
+
+def lm_run(torch, dev, arch: str) -> dict:
+    """One arch of LM_RUNS: plan, init, checks, prefill, decode, train."""
+    from repro_torch import configs
+    from repro_torch.launch import analytic
+    from repro_torch.models import transformer as tt
+    t0 = time.perf_counter()
+    cfg, reduced, pre, dec, seq, need, free = lm_plan(torch, arch)
+    train = LM_RUNS[arch]["train"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = tt.init_params(cfg, SEED, device=dev)
+    rec = {"phase": "lm", "run": arch, "config": cfg.name,
+           "layers": cfg.n_layers, "params": cfg.param_count(),
+           "param_bytes": lm_param_bytes(cfg), "dtype": cfg.dtype,
+           "free_bytes": free + LM_RESERVE, "reduced": reduced,
+           "init_s": time.perf_counter() - t0}
+    with torch.no_grad():
+        rec["check"] = lm_checks(torch, dev, tt, cfg, params,
+                                 LM_RUNS[arch]["check"], free, gen)
+        rec["prefill"] = lm_prefill(torch, dev, tt, analytic, cfg, params,
+                                    pre, gen)
+        rec["decode"] = lm_decode(torch, dev, tt, analytic, cfg, params,
+                                  dec, gen)
+    del params        # the train steps start from the same seeded init
+    _free(torch)
+    if train is not None and seq is None:
+        # nothing fits at full width: the SMOKE size, listed
+        smoke = configs.get(arch).SMOKE
+        reduced.append(f"{train[3]} train_step at SMOKE size ({smoke.name}):"
+                       " no sequence of 512 or more fits at full width")
+        rec["train"] = lm_train(torch, dev, tt, analytic, smoke, train, 128,
+                                gen)
+    elif train is not None:
+        rec["train"] = lm_train(torch, dev, tt, analytic, cfg, train, seq,
+                                gen)
+        rec["train"]["need_bytes"] = need
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def lm_attention(torch, dev) -> dict:
+    """``flash_attention`` against ``attention_ref`` in float32 at
+    granite's head shape and ATTN_SEQ tokens (causal; banded at
+    ATTN_WINDOW; softcap 50), at the transformer's chunks; then one
+    layer's attention at LM_SEQ in bf16, the port's chunked attention
+    beside ``F.scaled_dot_product_attention`` (causal, GQA) as a
+    yardstick (no softcap, no band: never on the path)."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.models.attention import attention_ref, flash_attention
+    t0 = time.perf_counter()
+    cfg = configs.get("granite_3_8b").FULL
+    h, g, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def qkv(seq, dtype):
+        return [torch.randn((1, seq, n, dh), generator=gen, device=dev,
+                            dtype=dtype) for n in (h, g, g)]
+
+    q, k, v = qkv(ATTN_SEQ, torch.float32)
+    errs = {}
+    for name, kw in (("causal", {}), ("banded", {"window": ATTN_WINDOW}),
+                     ("softcap", {"softcap": 50.0})):
+        got = flash_attention(q, k, v, causal=True, q_chunk=512,
+                              k_chunk=1024, **kw)
+        want = attention_ref(q, k, v, causal=True, **kw)
+        errs[name] = max_err(got, want)
+        require(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL),
+                f"lm: flash_attention {name} vs attention_ref: max |err| "
+                f"{errs[name]}")
+    del q, k, v, got, want
+    q, k, v = qkv(LM_SEQ, torch.bfloat16)
+    port = flash_attention(q, k, v, causal=True, q_chunk=512, k_chunk=1024)
+    port_ms = cuda_ms(torch, lambda: flash_attention(
+        q, k, v, causal=True, q_chunk=512, k_chunk=1024), reps=2, warmup=0)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    lib = sdpa().transpose(1, 2)
+    sdpa_ms = cuda_ms(torch, sdpa, reps=5, warmup=1)
+    flops = 4 * h * dh * LM_SEQ * LM_SEQ       # full tiles, as analytic's
+    return {"phase": "lm", "run": "attention", "shape": [1, LM_SEQ, h, g, dh],
+            "flash_vs_ref_f32": {"seq": ATTN_SEQ, "window": ATTN_WINDOW,
+                                 "max_abs_err": errs,
+                                 "tolerance": f"allclose rtol={ATTN_RTOL} "
+                                              f"atol={ATTN_ATOL}"},
+            "port_ms": port_ms, "sdpa_ms": sdpa_ms,
+            "port_over_sdpa": port_ms / sdpa_ms,
+            "port_vs_sdpa_rel": rel_norm(port, lib),
+            "analytic_flops": flops,
+            "port_bf16_peak_share": lm_share(flops, port_ms, "bfloat16"),
+            "seconds": time.perf_counter() - t0}
+
+
+def lm_phase(torch, dev) -> None:
+    """A12b at full width, one ``{"phase": "lm"}`` line per run, on a card
+    otherwise empty (less than MODELS_MAX_START_BYTES allocated)."""
+    t0 = time.perf_counter()
+    start = torch.cuda.memory_allocated()
+    require(start < MODELS_MAX_START_BYTES,
+            f"lm: {start} bytes allocated at the phase's start")
+    with expandable_segments(torch):
+        with torch.no_grad():
+            emit(lm_attention(torch, dev))
+        _free(torch)
+        for arch in LM_RUNS:
+            rec = lm_run(torch, dev, arch)
+            _free(torch)
+            emit(rec)
+    emit({"phase": "lm", "seconds": time.perf_counter() - t0,
+          "card": torch.cuda.get_device_name(0),
+          "allocated_at_start_bytes": start})
+
+
+@contextlib.contextmanager
+def expandable_segments(torch):
+    """The caching allocator with expandable segments, for the lm phase
+    only: a train step's old and new float32 state (~75 GB for gemma2's
+    update) fits the card only if the activations' freed blocks do not
+    fragment it (without them, a run of this phase on an H100 80GB had 14
+    GiB reserved and unallocated when a 2 GiB leaf failed)."""
+    _free(torch)
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        _free(torch)
+        torch._C._accelerator_setAllocatorSettings(
+            "expandable_segments:False")
 
 
 # ------------------------------------------------------------------ phase 4
@@ -3237,6 +3734,7 @@ def main() -> int:
         emit({"phase": "adversarial", "max_abs_err": errs})
     _free(torch)
     models_phase(torch, dev)
+    lm_phase(torch, dev)
     with torch.no_grad():
         g, train, test = build_graph(torch, dev)
         from repro_torch.pipeline import get_model

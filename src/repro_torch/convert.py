@@ -11,12 +11,21 @@ from repro_torch.device import resolve_device
 def params_from_jax(params, device="cuda"):
     """Nested dicts and lists of float arrays (e.g. the reference's
     ``pipe.init_state()["params"]`` through ``np.asarray``) -> the same
-    structure of float32 tensors on ``device``.  NGCF's ``w1``/``w2``
-    lists and GCN's ``layers`` list of dicts keep their layout."""
+    structure of tensors on ``device``: bfloat16 leaves as
+    ``torch.bfloat16`` (the same bits), every other float leaf as float32.
+    NGCF's ``w1``/``w2`` lists, GCN's ``layers`` list of dicts and the
+    transformer's stacked ``layers`` keep their layout.
+
+    A JAX bfloat16 array comes through ``np.asarray`` as ``ml_dtypes``'
+    bfloat16, of dtype kind ``'V'``; its bits are read through ``int16``,
+    so this needs no ``ml_dtypes`` (the card's machine has none)."""
     dev = resolve_device(device)
 
     def leaf(path, value):
         arr = np.asarray(value)
+        if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+            bits = np.ascontiguousarray(arr).view(np.int16)
+            return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
         if arr.dtype.kind != "f":
             raise TypeError(f"param {path!r} is not a float array "
                             f"(dtype {arr.dtype})")
@@ -35,9 +44,14 @@ def params_from_jax(params, device="cuda"):
 
 def params_to_numpy(params):
     """The inverse: nested dicts and lists of tensors -> numpy arrays in
-    the same structure (host copies)."""
+    the same structure (host copies).  A bfloat16 leaf comes back as
+    float32 (exact: every bfloat16 is a float32), since numpy has no
+    bfloat16 of its own."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return [params_to_numpy(v) for v in params]
-    return params.detach().cpu().numpy()
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()

@@ -38,7 +38,9 @@ the card unless ``--device cpu`` is given:
   python -m repro_torch.launch.train --arch gcn-cora --steps 50
   python -m repro_torch.launch.train --device cpu --arch deepfm --steps 20
 
-The LM archs raise ``NotImplementedError`` naming ROADMAP A12b.
+The LM archs end as the reference's launcher ends them (``SystemExit``):
+their entry points are ``repro_torch.models.transformer``'s ``train_step``,
+``prefill`` and ``decode_step``.
 Checkpoints default to ``<tempdir>/repro_ckpt/<arch>``.
 """
 from __future__ import annotations
@@ -412,14 +414,11 @@ def main(argv=None):
         train_gcn(steps, f"{ckpt_root}/{arch}", device=args.device)
     elif arch in ("deepfm", "xdeepfm", "dlrm_rm2"):
         train_recsys(arch, steps, f"{ckpt_root}/{arch}", device=args.device)
-    elif arch in config_registry.UNPORTED:
-        raise NotImplementedError(f"the {arch} arch is in the LM pool, not "
-                                  "ported yet (ROADMAP A12b)")
     else:
         raise SystemExit(
             f"CPU trainer for {arch!r} not wired; pipeline archs: "
             f"{', '.join(PIPELINE_ARCHS)}; also gcn-cora, deepfm, xdeepfm, "
-            f"dlrm_rm2 (the LM archs are ROADMAP A12b)")
+            f"dlrm_rm2 (LM archs run via the dry-run)")
 
 
 if __name__ == "__main__":

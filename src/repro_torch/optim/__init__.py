@@ -1,5 +1,6 @@
 """Functional optimizers over nested dicts and lists of tensors."""
-from repro_torch.optim.optimizers import (Optimizer, WarmupLinearLR, adam,
-                                          global_norm_clip, sgd)
+from repro_torch.optim.optimizers import (Optimizer, WarmupLinearLR, adafactor,
+                                          adam, global_norm_clip, sgd)
 
-__all__ = ["Optimizer", "WarmupLinearLR", "adam", "global_norm_clip", "sgd"]
+__all__ = ["Optimizer", "WarmupLinearLR", "adafactor", "adam",
+           "global_norm_clip", "sgd"]
