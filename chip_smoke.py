@@ -73,6 +73,15 @@ Phases (any failure exits non-zero before the last line is printed):
      steps, ``Run.evaluate`` over every held-out user at the derived eval
      batch, ``Run.recommend`` against the plain route, a checkpointed run
      resumed bit for bit, and the CPU-sized presets on the card;
+  7b. the step auditor on the card (``audit``,
+     ``src/repro_torch/analysis/step_audit.py``): the ops that the api
+     phase's LightGCN-FULL Run dispatches in its micro step, its update
+     and its serve path (the Recommender's row gather and
+     ``fused_topk_score``), then the lightgcn-smoke and ngcf-smoke presets
+     at one shard (ngcf with the fused-Hadamard contract: the fused micro
+     step forms no float32 [E, D] tensor), recorded op by op under
+     ``torch.cuda.set_sync_debug_mode("warn")``; zero violations (f64,
+     host reads, collectives, sync warnings) required on every arm;
   8. the training half of the planner and tiers (``tiered_train``): both
      ``*-full`` presets built as they are (the derived microbatch 150,528
      and eval batch 4,096 required), then LightGCN FULL through
@@ -110,6 +119,13 @@ Phases (any failure exits non-zero before the last line is printed):
      ``torch.sparse.sampled_addmm`` as the 'dot' yardstick);
   11. the subgraph-training baseline beside the full-graph step at depth
      1-3 (``subgraph``, the paper's headline comparison);
+  11b. the dry-run (``dryrun``, ``src/repro_torch/launch/dryrun.py``, on
+     the host and allocation-free): every cell of the 12 archs' SHAPES at
+     one card and at the reference's two production meshes, one line each
+     (per-device bytes, peak estimate, roofline terms at H100 figures),
+     the skipped cells, and each estimate over the peak that the models
+     and lm phases measured, the cells that ran at their own shape
+     required to fit one card;
   12. print ``{"kernels": [...]}`` and, last, the device line.
 Imports torch, numpy and the port; never JAX or the ``repro`` package.
 """
@@ -233,9 +249,6 @@ LEVEL_IMPL = {1: "torch"}
 # subgraph baseline (examples/fullgraph_vs_subgraph.py): fanout 10, 2
 # workers, 256 seeds; the full-graph arm takes a 256-sample BPR batch
 SUB_FANOUT, SUB_WORKERS, SUB_BATCH = 10, 2, 256
-# H100 SXM datasheet peaks (NVIDIA, dense, without sparsity)
-PEAK_FP32 = 67e12          # FLOP/s, CUDA cores
-PEAK_BYTES = 3.35e12       # bytes/s, HBM3
 
 TOLERANCE = {
     "spmm_csr": f"adversarial: allclose rtol={RTOL} atol={ATOL}; row-split "
@@ -281,6 +294,8 @@ COO_KERNELS = ("sddmm",)
 API_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 TIERED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 SHARDED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
+AUDIT_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score",
+                 "hadamard_spmm")
 # spmm_csr's row-split cases (check_spmm); gathered rows come from a table
 # of SPLIT_SRC_ROWS rows
 SPLIT_CASES = ("long_row", "boundaries", "no_edges", "long_indptr")
@@ -349,7 +364,20 @@ LM_F32_RTOL, LM_PREFILL_RTOL, LM_DECODE_RTOL = 1e-4, 1e-2, 1e-1
 # flash_attention against attention_ref in float32: the reference's own
 # test tolerance (tests/test_attention.py), at granite's head shape
 ATTN_RTOL, ATTN_ATOL, ATTN_SEQ, ATTN_WINDOW = 2e-4, 2e-5, 4_096, 1_024
-PEAK_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores (H100 SXM)
+# the audit phase (ROADMAP A12c): the step auditor on the card over the api
+# phase's LightGCN-FULL Run and the AUDIT_SMOKE presets at one shard (ngcf
+# with the fused-Hadamard contract); every arm must show zero violations
+AUDIT_SMOKE = ("lightgcn", "ngcf")
+# the dryrun phase: every cell of the archs' SHAPES at each mesh of
+# launch/mesh.py; each estimate beside the peak a phase measured at the
+# cell's own shape (DRYRUN_MEASURED: cell -> (models run, variant env)), and
+# those cells required to fit one card
+DRYRUN_MEASURED = {
+    ("deepfm", "train_batch"): ("deepfm", {}),
+    ("dlrm_rm2", "train_batch"): ("dlrm_rm2", {"REPRO_RECSYS_OPT": "rowwise"}),
+    ("gcn_cora", "ogb_products"): ("gcn", {}),
+    ("gcn_cora", "molecule"): (None, {}),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -449,7 +477,8 @@ def host_us(torch, fn, calls: int = 1000) -> float:
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / PEAK_FP32
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FP32
+    t_bytes, t_ops = bytes_moved / HBM_BW, flops / PEAK_FP32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1236,13 +1265,15 @@ def models_gcn(torch, dev) -> dict:
                           check, t0)
 
 
-def models_phase(torch, dev) -> None:
+def models_phase(torch, dev) -> dict:
     """A11a/A12a at FULL width, one ``{"phase": "models"}`` line per run, on
-    a card otherwise empty (less than MODELS_MAX_START_BYTES allocated)."""
+    a card otherwise empty (less than MODELS_MAX_START_BYTES allocated).
+    Returns the records by run."""
     t0 = time.perf_counter()
     start = torch.cuda.memory_allocated()
     require(start < MODELS_MAX_START_BYTES,
             f"models: {start} bytes allocated at the phase's start")
+    recs = {}
     for run in ("deepfm", "xdeepfm", "dlrm_rm2", "bert4rec", "gcn"):
         at_start = torch.cuda.memory_allocated()
         if run in ("deepfm", "xdeepfm"):
@@ -1256,74 +1287,17 @@ def models_phase(torch, dev) -> None:
         rec["allocated_at_start_bytes"] = at_start
         _free(torch)
         emit(rec)
+        recs[run] = rec
     emit({"phase": "models", "seconds": time.perf_counter() - t0,
           "allocated_at_start_bytes": start})
+    return recs
 
 
 # ------------------------------------------------------------------ lm
-def lm_param_bytes(cfg) -> int:
-    """The params' bytes in bfloat16, the router in float32."""
-    router = cfg.n_layers * cfg.d_model * cfg.n_experts
-    return 2 * cfg.param_count() + 2 * router
-
-
-def lm_cache_bytes(cfg, batch: int, seq: int) -> int:
-    return 2 * cfg.n_layers * batch * cfg.n_kv_heads * seq * cfg.head_dim * 2
-
-
-def lm_act_bytes(cfg, rows: int, seq: int, train: bool) -> float:
-    """A pass's transient bytes at [rows, seq]: one layer's FFN hidden
-    (bf16 and float32 copies, 12 bytes a column; a MoE token's k slots at
-    the capacity factor, its dispatched rows and combined outputs),
-    attention (4 tiles of TILE_BYTES; when training, one layer's saved
-    float32 scores on the re-forward, 4 copies of [rows, H, seq, seq]),
-    when training the float32 logits (5 copies: the softcap's and
-    logsumexp's saved tensors and gradients) and the checkpointed layer
-    inputs, and a few [t, D] activations."""
-    from repro_torch.models.attention import TILE_BYTES
-    t = rows * seq
-    if cfg.is_moe:
-        width = (cfg.top_k * cfg.capacity_factor + cfg.shared_experts) \
-            * cfg.moe_d_ff
-        moe = 4 * t * cfg.top_k * cfg.d_model * 2
-    else:
-        width, moe = cfg.d_ff, 0
-    act = t * width * 12 + moe + 8 * t * cfg.d_model * 2
-    if not train:
-        return act + 4 * TILE_BYTES
-    return act + 4 * rows * cfg.n_heads * seq * seq * 4 \
-        + 5 * t * cfg.vocab * 4 + cfg.n_layers * t * cfg.d_model * 2
-
-
-def lm_train_need(cfg, train, seq: int) -> float:
-    """Peak bytes of ``train``'s steps from bf16 params, by the dtypes
-    C2 gives: Adam turns the params float32 at step 1 and the moments to
-    the gradients' dtype (float32 when accumulated, or when the params
-    are); adafactor keeps them.  The larger of a microbatch's backward
-    (state, accumulator, its gradients, a second copy of the stacked
-    layers' and of one table's, activations) and an update (old state,
-    gradients, new state, 1 GiB of pieces)."""
-    gb, micro, steps, opt_name, _, _ = train
-    n = lm_param_bytes(cfg) / 2
-    table = cfg.vocab * cfg.d_model
-    stacked = n - 2 * table                          # the [L, ...] leaves
-    act = lm_act_bytes(cfg, gb // micro, seq, True)
-    if opt_name == "adafactor":
-        return max(4 * n + 2 * (stacked + table) + act, 6 * n + (1 << 30))
-    p, mv, back, upd = 2, 2, 0.0, 0.0
-    for _ in range(steps):
-        g = 4 if micro > 1 or p == 4 else 2
-        back = max(back, (p + 2 * mv + (4 if micro > 1 else 0) + g) * n
-                   + g * (stacked + table))
-        new_mv = max(mv, g)
-        upd = max(upd, p + 2 * mv + g + 4 + 2 * new_mv)
-        p, mv = 4, new_mv
-    return max(back + act, upd * n + (1 << 30))
-
-
 def lm_share(flops: float, ms: float, dtype: str) -> float:
     """Share of the dtype's dense peak that ``flops`` in ``ms`` give."""
-    peak = PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    peak = PEAK_FLOPS["bfloat16" if dtype == "bfloat16" else "float32"]
     return flops / (ms / 1e3) / peak
 
 
@@ -1362,6 +1336,7 @@ def lm_checks(torch, dev, tt, cfg, params, seq: int, free: float,
     config runs at a capacity factor that drops nothing (e / k): with
     drops the two passes route different token sets, in the reference
     too."""
+    from repro_torch.launch.dryrun import lm_act_bytes, lm_param_bytes
     import dataclasses
     if cfg.is_moe:
         cfg = dataclasses.replace(cfg,
@@ -1387,6 +1362,7 @@ def lm_checks(torch, dev, tt, cfg, params, seq: int, free: float,
 def lm_prefill(torch, dev, tt, analytic, cfg, params, batch: int,
                gen) -> dict:
     """One synchronised ``prefill`` of [batch, LM_SEQ] tokens."""
+    from repro_torch.launch.dryrun import lm_cache_bytes
     toks = torch.randint(0, cfg.vocab, (batch, LM_SEQ), generator=gen,
                          device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1412,6 +1388,8 @@ def lm_decode(torch, dev, tt, analytic, cfg, params, batch: int,
               gen) -> dict:
     """LM_DECODE_STEPS greedy ``decode_step``s at positions LM_SEQ - 16 ..
     LM_SEQ - 1 of a [batch, LM_SEQ] cache of N(0, 1) keys and values."""
+    from repro_torch.launch.dryrun import lm_cache_bytes
+    from repro_torch.launch.roofline import HBM_BW
     cache = tt.init_kv_cache(cfg, batch, LM_SEQ, device=dev)
     for n in ("k", "v"):
         cache[n].normal_(generator=gen)
@@ -1436,7 +1414,7 @@ def lm_decode(torch, dev, tt, analytic, cfg, params, batch: int,
             "cache_bytes": lm_cache_bytes(cfg, batch, LM_SEQ),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "analytic_hbm_bytes": cost["hbm_bytes"],
-            "hbm_share": cost["hbm_bytes"] / (med / 1e3) / PEAK_BYTES,
+            "hbm_share": cost["hbm_bytes"] / (med / 1e3) / HBM_BW,
             "bf16_peak_share": lm_share(cost["flops"], med, "bfloat16")}
 
 
@@ -1501,6 +1479,8 @@ def lm_plan(torch, arch: str) -> tuple:
     the card's free memory before the run allocates anything."""
     import dataclasses
     from repro_torch import configs
+    from repro_torch.launch.dryrun import (lm_act_bytes, lm_cache_bytes,
+                                           lm_param_bytes, lm_train_need)
     mod = configs.get(arch)
     spec, full = LM_RUNS[arch], mod.FULL
     free = torch.cuda.mem_get_info()[0] - LM_RESERVE
@@ -1570,6 +1550,7 @@ def lm_run(torch, dev, arch: str) -> dict:
     """One arch of LM_RUNS: plan, init, checks, prefill, decode, train."""
     from repro_torch import configs
     from repro_torch.launch import analytic
+    from repro_torch.launch.dryrun import lm_param_bytes
     from repro_torch.models import transformer as tt
     t0 = time.perf_counter()
     cfg, reduced, pre, dec, seq, need, free = lm_plan(torch, arch)
@@ -1663,9 +1644,10 @@ def lm_attention(torch, dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def lm_phase(torch, dev) -> None:
+def lm_phase(torch, dev) -> list:
     """A12b at full width, one ``{"phase": "lm"}`` line per run, on a card
-    otherwise empty (less than MODELS_MAX_START_BYTES allocated)."""
+    otherwise empty (less than MODELS_MAX_START_BYTES allocated).  Returns
+    the runs' records."""
     t0 = time.perf_counter()
     start = torch.cuda.memory_allocated()
     require(start < MODELS_MAX_START_BYTES,
@@ -1674,13 +1656,16 @@ def lm_phase(torch, dev) -> None:
         with torch.no_grad():
             emit(lm_attention(torch, dev))
         _free(torch)
+        recs = []
         for arch in LM_RUNS:
             rec = lm_run(torch, dev, arch)
             _free(torch)
             emit(rec)
+            recs.append(rec)
     emit({"phase": "lm", "seconds": time.perf_counter() - t0,
           "card": torch.cuda.get_device_name(0),
           "allocated_at_start_bytes": start})
+    return recs
 
 
 @contextlib.contextmanager
@@ -2734,6 +2719,8 @@ def api_phase(torch, dev, train, test):
     require(_leaves_equal(torch, resumed.state, run.state),
             "api: the resumed state differs from the uninterrupted run's")
     del resumed
+    torch.cuda.empty_cache()
+    audit = audit_arm(torch, "lightgcn-full", run, spec)
     describe = run.describe().splitlines()[0]
     del run
     torch.cuda.empty_cache()
@@ -2753,7 +2740,7 @@ def api_phase(torch, dev, train, test):
                      "resumed_loss": rep3.losses[0],
                      "bitwise_equal_to_uninterrupted": True},
           "presets": presets, "launches": launches})
-    return launches, eval_s
+    return launches, eval_s, audit
 
 
 # ------------------------------------------------------------ tiered_train
@@ -3718,6 +3705,136 @@ def subgraph_phase(torch, dev, train, params):
           "depths": rows})
 
 
+# ------------------------------------------------------------------ audit
+def audit_arm(torch, name: str, run, spec) -> dict:
+    """The step auditor (``analysis/step_audit.py``) over one built Run on
+    the card: its micro step, update and serve halves recorded op by op
+    under ``torch.cuda.set_sync_debug_mode("warn")``; the kernels'
+    launches counted from 0 around it."""
+    from repro_torch import kernels
+    from repro_torch.analysis import step_audit
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    violations, halves = step_audit.audit_run(run, spec)
+    if spec.model.arch == "ngcf":
+        violations += step_audit.fusion_audit(spec, where=spec.name,
+                                              device=run.pipeline.device)
+    return {"phase": "audit", "arm": name, "spec": spec.name,
+            "violations": violations, "halves": halves,
+            "seconds": time.perf_counter() - t0,
+            "launches": kernels.launch_counts()}
+
+
+def audit_phase(torch, dev, full: dict) -> dict:
+    """The ``audit`` phase: the api phase's LightGCN-FULL arm (``full``)
+    and the AUDIT_SMOKE presets at one shard, one line per arm (ops
+    recorded, host reads by site, sync-debug warnings, f64 ops,
+    collectives and seconds per half); zero violations required.  Returns
+    the launches summed over the arms."""
+    from repro_torch.analysis import step_audit
+    from repro_torch.api import build
+    t0 = time.perf_counter()
+    arms = [full]
+    for arch in AUDIT_SMOKE:
+        spec = step_audit.smoke_spec(arch=arch)
+        arms.append(audit_arm(torch, f"{arch}-smoke", build(spec, device=dev),
+                              spec))
+        _free(torch)
+    launches = {}
+    for arm in arms:
+        emit(arm)
+        for k, v in arm["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for arm in arms:
+        require(not arm["violations"],
+                f"audit {arm['arm']}: {arm['violations']}")
+    for name in ("spmm_csr", "fused_topk_score", "embedding_bag"):
+        require(full["launches"][name] > 0,
+                f"audit: {name} never launched on lightgcn-full")
+    require(arms[-1]["launches"]["hadamard_spmm"] > 0,
+            "audit: the fused NGCF arm never launched hadamard_spmm")
+    emit({"phase": "audit", "seconds": time.perf_counter() - t0,
+          "arms": [a["arm"] for a in arms], "violations": 0})
+    return launches
+
+
+# ------------------------------------------------------------------ dryrun
+@contextlib.contextmanager
+def _env(values: dict):
+    import os
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dryrun_phase(torch, models: dict, lm: list) -> None:
+    """The ``dryrun`` phase (``launch/dryrun.py``, allocation-free, on the
+    host): one line per cell of the archs' SHAPES at each mesh and one per
+    skipped cell; then each estimate beside the peak a phase measured at
+    the cell's own shape (DRYRUN_MEASURED; the lm phase's runs are cut, so
+    their memory model's need stands beside their peak), those cells
+    required to fit one card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MESHES
+    t0 = time.perf_counter()
+    cells, skips = dryrun.all_cells()
+    n = 0
+    for arch, shape in cells:
+        for mesh in MESHES:
+            r = dryrun.run_cell(arch, shape, mesh, verbose=False)
+            roof = r["roofline"]
+            emit({"phase": "dryrun", "arch": arch, "shape": shape,
+                  "mesh": mesh, "chips": r["chips"],
+                  "arg_bytes_per_dev": r["arg_bytes_per_dev"],
+                  "peak_bytes_per_dev": r["peak_bytes_per_dev"],
+                  "peak_source": r["peak_source"], "fits_hbm": r["fits_hbm"],
+                  "bottleneck": roof["bottleneck"],
+                  "compute_s": roof["compute_s"],
+                  "memory_s": roof["memory_s"],
+                  "collective_s": roof["collective_s"],
+                  "traced_flops": r["traced"]["flops"]
+                  if r["traced"] else None})
+            n += 1
+    for arch, shape, reason in skips:
+        emit({"phase": "dryrun", "arch": arch, "shape": shape,
+              "skip": reason})
+    versus = []
+    for (arch, shape), (run, env) in DRYRUN_MEASURED.items():
+        with _env(env):
+            r = dryrun.run_cell(arch, shape, "one-card", verbose=False)
+        rec = models.get(run) if run else None
+        measured = rec["peak_bytes"] if rec and not rec["reduced"] else None
+        versus.append({"cell": f"{arch}/{shape}", "variant": env or None,
+                       "estimate_bytes": r["peak_bytes_per_dev"],
+                       "measured_peak_bytes": measured,
+                       "estimate_over_measured": r["peak_bytes_per_dev"]
+                       / measured if measured else None,
+                       "fits_hbm": r["fits_hbm"]})
+        require(r["fits_hbm"], f"dryrun: {arch}/{shape} ran on the card "
+                               "but its estimate does not fit")
+    for rec in lm:
+        train = rec.get("train") or {}
+        if train.get("need_bytes"):
+            versus.append({"cell": f"{rec['run']} train (cut: "
+                                   f"{train['global_batch']} x "
+                                   f"{train['seq']})",
+                           "estimate_bytes": train["need_bytes"],
+                           "measured_peak_bytes": train["peak_bytes"],
+                           "estimate_over_measured": train["need_bytes"]
+                           / train["peak_bytes"]})
+    emit({"phase": "dryrun", "records": n, "skipped": len(skips),
+          "estimate_vs_measured": versus,
+          "seconds": time.perf_counter() - t0})
+
+
+
 def main() -> int:
     torch = setup()
     build()
@@ -3733,8 +3850,8 @@ def main() -> int:
                 "ann_block_scores": check_ann(torch, dev, rng)}
         emit({"phase": "adversarial", "max_abs_err": errs})
     _free(torch)
-    models_phase(torch, dev)
-    lm_phase(torch, dev)
+    models = models_phase(torch, dev)
+    lm = lm_phase(torch, dev)
     with torch.no_grad():
         g, train, test = build_graph(torch, dev)
         from repro_torch.pipeline import get_model
@@ -3765,8 +3882,10 @@ def main() -> int:
     times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
     del layer0
     torch.cuda.empty_cache()
-    api_launches, api_eval_s = api_phase(torch, dev, train, test)
+    api_launches, api_eval_s, full_audit = api_phase(torch, dev, train,
+                                                     test)
     torch.cuda.empty_cache()
+    audit_launches = audit_phase(torch, dev, full_audit)
     tiered_launches, graph = tiered_train(torch, dev, train, test,
                                           api_eval_s)
     sharded_launches = sharded_phase(torch, dev, train, test, graph)
@@ -3781,6 +3900,9 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
     subgraph_phase(torch, dev, train, coo_params)
+    del train, test, coo_params
+    _free(torch)
+    dryrun_phase(torch, models, lm)
     paths = {"serving": {k: serve_launches[k] for k in SERVING_KERNELS},
              "ann_serving": {k: ann_launches[k] for k in ANN_KERNELS},
              "training": {k: train_launches[k] for k in TRAINING_KERNELS},
@@ -3788,7 +3910,8 @@ def main() -> int:
              "api": {k: api_launches[k] for k in API_KERNELS},
              "tiered_train": {k: tiered_launches[k]
                               for k in TIERED_KERNELS},
-             "sharded": {k: sharded_launches[k] for k in SHARDED_KERNELS}}
+             "sharded": {k: sharded_launches[k] for k in SHARDED_KERNELS},
+             "audit": {k: audit_launches[k] for k in AUDIT_KERNELS}}
     emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():

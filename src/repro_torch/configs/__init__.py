@@ -1,7 +1,7 @@
 """Architecture registry (the port of ``repro/configs``): one module per
 assigned arch (+ the paper's own NGCF/LightGCN).  ``get(arch_id)``
-returns the module, which exposes FULL, SMOKE, FAMILY and OPTIMIZER (and
-family-specific extras: the LM pool's SHAPES and SKIP)."""
+returns the module, which exposes FULL, SMOKE, FAMILY, OPTIMIZER, SHAPES
+and SKIP (and family-specific extras)."""
 from __future__ import annotations
 
 import importlib

@@ -10,3 +10,8 @@ FULL = NGCFConfig(name="lightgcn-3l-128e", n_users=349_184, n_items=53_248,
                   bpr_batch=150_528)
 SMOKE = NGCFConfig(name="lightgcn-smoke", n_users=64, n_items=48,
                    n_edges=512, embed_dim=16, n_layers=2, bpr_batch=64)
+
+SHAPES = {
+    "fullgraph_train": dict(kind="gnnrecsys_train"),
+}
+SKIP = {}

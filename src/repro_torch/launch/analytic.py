@@ -1,7 +1,7 @@
 """Analytic FLOPs / HBM-traffic / collective-traffic model for LM cells —
 the port of ``repro/launch/analytic.py``, the same formulas over the
 port's ``TransformerConfig``.  A mesh is anything with a ``shape``
-mapping of axis name to size, as a JAX mesh has; one card is
+mapping of axis name to size (``launch/mesh.py``); one card is
 ``ONE_CARD`` (``{"data": 1, "model": 1}``).
 
 Why this exists: XLA's HloCostAnalysis counts a while-loop *body once*,
@@ -26,18 +26,7 @@ Conventions:
 """
 from __future__ import annotations
 
-import types
-
-ONE_CARD = types.SimpleNamespace(shape={"data": 1, "model": 1})
-
-
-def dp_size(mesh) -> int:
-    """Size of the data-parallel axes ('pod', 'data') of ``mesh``."""
-    out = 1
-    for a, n in mesh.shape.items():
-        if a in ("pod", "data"):
-            out *= n
-    return out
+from repro_torch.launch.mesh import ONE_CARD, dp_size  # noqa: F401
 
 
 def _lm_dims(cfg):

@@ -418,7 +418,15 @@ def main(argv=None):
         raise SystemExit(
             f"CPU trainer for {arch!r} not wired; pipeline archs: "
             f"{', '.join(PIPELINE_ARCHS)}; also gcn-cora, deepfm, xdeepfm, "
-            f"dlrm_rm2 (LM archs run via the dry-run)")
+            f"dlrm_rm2 (LM archs run via the dry-run: {dryrun_command(arch)})")
+
+
+def dryrun_command(arch: str) -> str:
+    """The dry-run's command line for ``arch``, its shapes listed."""
+    shapes = [s for s in config_registry.get(arch).SHAPES
+              if s not in config_registry.get(arch).SKIP]
+    return (f"python -m repro_torch.launch.dryrun --arch {arch} --shape "
+            f"<shape>, <shape> one of {', '.join(shapes)}")
 
 
 if __name__ == "__main__":

@@ -226,8 +226,8 @@ def bert4rec_encode(cfg: BERT4RecConfig, params, item_seq, seq_mask
     d, h = cfg.embed_dim, cfg.n_heads
     x = params["item_embed"][item_seq.long()] + params["pos_embed"][None, :s]
     attn_mask = seq_mask[:, None, None, :]  # key-side padding mask
-    temp = torch.tensor(math.sqrt(d / h), dtype=torch.float32,
-                        device=x.device)
+    temp = torch.full((), math.sqrt(d / h), dtype=torch.float32,
+                      device=x.device)
     for blk in params["blocks"]:
         y = _ln(x, blk["ln1"])
         q = (y @ blk["wq"]).reshape(b, s, h, d // h)

@@ -332,8 +332,8 @@ class WarmupLinearLR:
 
     def __call__(self, t) -> torch.Tensor:
         tf = torch.as_tensor(t).to(torch.float32)
-        ramp = tf / torch.tensor(float(max(self.warmup_steps, 1)),
-                                 dtype=torch.float32, device=tf.device)
+        ramp = tf / torch.full((), float(max(self.warmup_steps, 1)),
+                               dtype=torch.float32, device=tf.device)
         return self.peak_lr * torch.clamp(ramp, max=1.0)
 
 
@@ -345,7 +345,7 @@ def global_norm_clip(grads, max_norm: float):
     leaves = [g for _, g in tree_paths(grads)]
     norm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
                           for g in leaves))
-    scale = torch.clamp(torch.tensor(float(max_norm), dtype=torch.float32,
-                                     device=norm.device)
+    scale = torch.clamp(torch.full((), float(max_norm), dtype=torch.float32,
+                                   device=norm.device)
                         / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: _up(g, scale) * scale, grads), norm

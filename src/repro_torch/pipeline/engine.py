@@ -296,9 +296,12 @@ class Pipeline:
         return sum(self.steps_per_epoch(e) for e in range(n_epochs))
 
     # ---------------------------------------------------------------- step
-    def _batch(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
-                                                            torch.int64)
+    def _batch(self, a) -> torch.Tensor:
+        """Index array -> int64 tensor on the device (a tensor already
+        there passes as it is)."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(self.device, torch.int64)
 
     def loss(self, params, users, pos, neg) -> torch.Tensor:
         """The BPR loss of one microbatch through the model's forward
@@ -350,25 +353,38 @@ class Pipeline:
         acc = None
         for c in range(k):
             sl = slice(c * mu, min((c + 1) * mu, n))
-            if self.shard is None:
-                w = (sl.stop - sl.start) / n
-                loss, grads = self.value_and_grad(params, users[sl],
-                                                  pos[sl], neg[sl])
-                wl = loss * w
-                wg = tree_map(lambda t: t * w, grads)
-            else:
-                u, p, ng = self.shard.shard_batch(users[sl], pos[sl],
-                                                  neg[sl], rank=self.rank)
-                wl, wg = self.value_and_grad(params, u, p, ng,
-                                             weight=len(u) / n)
+            u, p, ng = users[sl], pos[sl], neg[sl]
+            if self.shard is not None:
+                u, p, ng = self.shard.shard_batch(u, p, ng, rank=self.rank)
+            wl, wg = self.micro_grads(params, u, p, ng, n)
             loss_sum = wl if loss_sum is None else loss_sum + wl
             acc = wg if acc is None else tree_map(torch.add, acc, wg)
+        loss_sum, acc = self.combine(loss_sum, acc)
+        return float(loss_sum), acc
+
+    def micro_grads(self, params, users, pos, neg, n: int):
+        """One chunk's (loss, grads) weighted by its rows over the target
+        batch's ``n``: on one device the chunk's mean-loss gradients times
+        chunk / n; on a sharded run this rank's slice's (``users`` are its
+        rows of the chunk), the weight taken inside the backward."""
+        if self.shard is None:
+            w = len(users) / n
+            loss, grads = self.value_and_grad(params, users, pos, neg)
+            return loss * w, tree_map(lambda t: t * w, grads)
+        return self.value_and_grad(params, users, pos, neg,
+                                   weight=len(users) / n)
+
+    def combine(self, loss, grads):
+        """The accumulated (loss, grads) across the ranks: the loss and
+        the replicated leaves' gradients all-reduced in place (the
+        row-sharded leaves' were reduce-scattered in the backward);
+        identity on one device."""
         if self.shard is not None:
-            all_reduce_(loss_sum, self.group)
+            all_reduce_(loss, self.group)
             tree_map(lambda t, ex: t if self._sharded(ex)
                      else all_reduce_(t, self.group),
-                     acc, self._full["params"])
-        return float(loss_sum), acc
+                     grads, self._full["params"])
+        return loss, grads
 
     def _next_target_batch(self, k: int, step: int):
         """Drain k loader microbatches into one (u, i+, i-) target batch.
@@ -429,8 +445,16 @@ class Pipeline:
         users, pos, neg = self._next_target_batch(k, step)
         state = self.executor.fetch(state)
         loss, grads = self.grads_for_batch(state["params"], users, pos, neg)
-        lr = torch.tensor(self.lr_for_epoch(epoch), dtype=torch.float32,
-                          device=self.device)
+        lr = torch.full((), self.lr_for_epoch(epoch), dtype=torch.float32,
+                        device=self.device)
+        out = self.apply_update(state, grads, lr)
+        self._next_step = step + 1
+        return self.executor.commit(out), loss
+
+    def apply_update(self, state, grads, lr: torch.Tensor):
+        """The update half of a step (the reference's ``_apply_update``):
+        gradient compression when configured, then the optimizer, on the
+        fetched state; returns the new {"params", "opt"[, "comp"]}."""
         out = {}
         with torch.no_grad():
             if self.compressor is not None:
@@ -441,8 +465,7 @@ class Pipeline:
                 grads = self.shard_state(grads)
             out["params"], out["opt"] = self.opt.update(
                 grads, state["opt"], state["params"], lr=lr)
-        self._next_step = step + 1
-        return self.executor.commit(out), loss
+        return out
 
     def on_relayout(self, state):
         """The loop's straggler escalation: re-run the planner over the

@@ -290,7 +290,8 @@ def test_spec_from_args_default_ckpt_dir_and_spec_file(tmp_path):
                                        ("kimi_k2_1t_a32b", "dry-run")])
 def test_legacy_trainers_raise_naming_their_item(arch, item, monkeypatch):
     """Only the LM archs end the launcher, with the reference's SystemExit
-    and its words (gcn-cora and the CTR archs train:
+    and its words, the port's dry-run command named inside the closing
+    parenthesis (gcn-cora and the CTR archs train:
     tests/test_torch_legacy_train.py; the LM pool's entry points are
     tests/test_torch_transformer.py's)."""
     argv = ["--arch", arch, "--steps", "1"]
@@ -299,7 +300,8 @@ def test_legacy_trainers_raise_naming_their_item(arch, item, monkeypatch):
     monkeypatch.setattr("sys.argv", ["train"] + argv)
     with pytest.raises(SystemExit) as want:
         jtrain.main()
-    assert str(got.value) == str(want.value)
+    named = f": {ttrain.dryrun_command(configs.canon(arch))})"
+    assert str(got.value) == str(want.value)[:-1] + named
 
 
 def test_cli_quickstart_runs_on_cpu(tmp_path, capsys):

@@ -306,3 +306,56 @@ def test_every_kernel_source_is_bound_and_annotated():
     assert f"constexpr int kUserTile = {USER_TILE};" in topk_src
     assert f"constexpr int kItemTile = {ITEM_TILE};" in topk_src
     assert "kMaxK" not in topk_src                          # no cap on k
+
+
+# ------------------------------------------------- every dispatch entry
+def _dispatch_case(name, rng):
+    """(port call, reference oracle call) on one seeded small input."""
+    if name == "sddmm":
+        x = rng.standard_normal((7, 12)).astype(np.float32)
+        y = rng.standard_normal((5, 12)).astype(np.float32)
+        src = rng.integers(0, 7, 20).astype(np.int32)
+        dst = rng.integers(0, 5, 20).astype(np.int32)
+        mask = rng.random(20) < 0.7
+        return (lambda: ops.sddmm("dot", T(x), T(y), T(src), T(dst),
+                                  T(mask)),
+                lambda: jref.sddmm_ref("dot", *map(jnp.asarray,
+                                                   (x, y, src, dst, mask))))
+    if name == "hadamard_spmm":
+        n_src, n_dst, e, d = 9, 6, 25, 20
+        dst = rng.integers(0, n_dst, e).astype(np.int32)
+        x_idx = rng.integers(0, n_src, e).astype(np.int32)
+        order = np.argsort(dst, kind="stable")
+        indptr = np.zeros(n_dst + 1, np.int32)
+        np.cumsum(np.bincount(dst, minlength=n_dst), out=indptr[1:])
+        x_idx, y_idx = x_idx[order], dst[order]
+        x = rng.standard_normal((n_src, d)).astype(np.float32)
+        y = rng.standard_normal((n_dst, d)).astype(np.float32)
+        args = (x, y, indptr, x_idx, y_idx)
+        return (lambda: ops.hadamard_spmm(T(x), T(y), T(indptr).long(),
+                                          T(x_idx), T(y_idx), n_dst),
+                lambda: jref.hadamard_spmm_ref(*map(jnp.asarray, args),
+                                               n_dst))
+    ue = rng.standard_normal((4, 16)).astype(np.float32)
+    cq = rng.integers(-127, 128, (6, 16)).astype(np.int8)
+    scale = rng.random(6).astype(np.float32)
+    radius = rng.random(6).astype(np.float32)
+    args = (ue, cq, scale, radius)
+    return (lambda: ops.ann_block_scores(*map(T, args)),
+            lambda: jref.ann_block_scores_ref(*map(jnp.asarray, args)))
+
+
+@pytest.mark.parametrize("name", ["sddmm", "hadamard_spmm",
+                                  "ann_block_scores"])
+def test_dispatch_plain_route_matches_reference_oracle(name):
+    """Every ``ops`` dispatch entry on CPU tensors (its plain version)
+    against the reference's ``repro.kernels.ref`` oracle, fp32 tolerance
+    (rtol = atol = 1e-5); the three the cases above do not call (their
+    adversarial shapes are in test_torch_sddmm.py, test_torch_hadamard.py
+    and test_torch_ann.py)."""
+    port, oracle = _dispatch_case(name, np.random.default_rng(7))
+    before = launch_counts()
+    got = port()
+    assert launch_counts() == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle()),
+                               rtol=1e-5, atol=1e-5)

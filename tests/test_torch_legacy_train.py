@@ -130,3 +130,27 @@ def test_cli_runs_legacy_trainer_on_cpu(arch, tmp_path, capsys):
     name = "gcn" if arch == "gcn-cora" else arch
     assert re.fullmatch(rf"\[{name}\] loss \d+\.\d{{4}} -> \d+\.\d{{4}}",
                         out[-1]), out
+
+
+@pytest.mark.parametrize("arch", ["gemma2_2b", "kimi_k2_1t_a32b"])
+def test_lm_arch_message_names_a_dry_run_that_runs(arch, tmp_path):
+    """The launcher ends an LM arch naming ``python -m
+    repro_torch.launch.dryrun --arch <arch> --shape <shape>`` and the
+    shapes; that command, with each named shape, writes its record."""
+    import json
+    from repro_torch.launch import dryrun
+    with pytest.raises(SystemExit) as got:
+        ttrain.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+    msg = str(got.value)
+    m = re.search(r"python -m repro_torch\.launch\.dryrun --arch (\S+) "
+                  r"--shape <shape>, <shape> one of ([\w, ]+)\)$", msg)
+    assert m and m.group(1) == arch, msg
+    shapes = m.group(2).split(", ")
+    assert shapes == [s for s in jconfigs.get(arch).SHAPES
+                      if s not in jconfigs.get(arch).SKIP]
+    for shape in shapes:
+        assert dryrun.main(["--arch", m.group(1), "--shape", shape,
+                            "--out", str(tmp_path)]) == 0
+        rec = json.loads((tmp_path / f"{arch}__{shape}__one-card.json")
+                         .read_text())
+        assert rec["arch"] == arch and rec["shape"] == shape

@@ -260,5 +260,42 @@ def collectives(rank, world, grads, seed, k):
             "topk": topk_allgather_sum(vals, idx, g.shape, group).numpy()}
 
 
+def step_audit(rank, world, arms, seeded=None):
+    """The step auditor's arms at mesh = world, each (arch, grads, ring):
+    {arm: (violations, the train step's collectives and tokens)}.
+    ``seeded='allreduce'`` adds an all-reduce of the loss inside the
+    forward (the auditor must flag it on a single-device arm)."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import step_audit as sa
+    from repro_torch.api import build
+    from repro_torch.core import bpr
+    out = {}
+    loss = bpr.bpr_loss
+
+    def reduced_loss(*a, **kw):
+        value = loss(*a, **kw)
+        dist.all_reduce(value)
+        return value
+
+    with mock.patch.object(bpr, "bpr_loss",
+                           reduced_loss if seeded == "allreduce" else loss):
+        for arch, grads, ring in arms:
+            spec = sa.smoke_spec(world, grads, ring, arch=arch)
+            violations = sa.smoke_audit(world, grads, ring, arch=arch,
+                                        device="cpu")
+            halves = sa.record_train_step(build(spec, device="cpu"))
+            recs = halves["micro_step"].recorder.records \
+                + halves["apply_update"].recorder.records
+            out[(arch, grads, ring)] = (violations, {
+                "collectives": sa.summary(recs)["collectives"],
+                "tokens": sorted(t for t in sa.tokens(recs)
+                                 if not t.startswith("float32"))})
+    return out
+
+
 JOBS = {f.__name__: f for f in (ring_ops, sharded_fit, sharded_runs,
-                                save_sharded, restore_sharded, collectives)}
+                                save_sharded, restore_sharded, collectives,
+                                step_audit)}
