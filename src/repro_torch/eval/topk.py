@@ -46,6 +46,7 @@ from repro_torch.dist.collectives import all_gather_rows, rank_of
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _ref
 from repro_torch.memory.executor import HostResident
+from repro_torch import trace
 
 NEG_INF = float("-inf")
 DEFAULT_USER_BATCH = 256
@@ -58,6 +59,15 @@ def _gather_rows(table: torch.Tensor, ids: torch.Tensor, impl):
     one allocation and one launch."""
     return kops.embedding_bag(table, ids.reshape(-1, 1), None, "sum",
                               impl=impl)
+
+
+def _upload(t: torch.Tensor, dev: torch.device, what: str) -> torch.Tensor:
+    """A host tensor on ``dev``.  An upload to the card from pageable
+    memory waits for the card's queue to drain: a host wait."""
+    if dev.type == "cpu":
+        return t
+    with trace.host_wait(what):
+        return t.to(dev)
 
 
 def _padded_seen(user_ids: torch.Tensor, indptr: torch.Tensor,
@@ -164,7 +174,7 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
     if seen_indptr is not None:
         seen_indptr = to_device(seen_indptr, dev, torch.int64)
         seen_items = to_device(seen_items, dev, torch.int64)
-    users = torch.from_numpy(user_ids).to(dev)
+    users = _upload(torch.from_numpy(user_ids), dev, "users")
 
     def stage_batch(lo):
         sel = users[lo:lo + ub]
@@ -182,9 +192,12 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
         else:
             ue = _gather_rows(user_e, sel, impl)
         if seen_indptr is not None:
-            deg = seen_indptr[sel.long() + 1] - seen_indptr[sel.long()]
-            seen, smask = _padded_seen(sel, seen_indptr, seen_items,
-                                       int(deg.max()))
+            with trace.span("serve::seen"):
+                deg = seen_indptr[sel.long() + 1] - seen_indptr[sel.long()]
+                with trace.host_wait("seen_width"):
+                    width = int(deg.max())
+                seen, smask = _padded_seen(sel, seen_indptr, seen_items,
+                                           width)
         else:
             seen = torch.zeros((len(sel), 0), dtype=torch.int32, device=dev)
             smask = torch.zeros((len(sel), 0), dtype=torch.bool, device=dev)
@@ -212,11 +225,12 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
         for b0 in range(0, n_blocks * blk, blk):
             ids = np.arange(b0, b0 + blk)
             valid = ids < n_items
-            block_ids = torch.from_numpy(
-                np.where(valid, ids, -1).astype(np.int32)).to(dev)
+            block_ids = _upload(torch.from_numpy(
+                np.where(valid, ids, -1).astype(np.int32)), dev, "block_ids")
             safe = np.where(valid, ids, 0)
             ie_blk = item_host.block(safe) if item_host is not None \
-                else _gather_rows(item_e, torch.from_numpy(safe).to(dev), impl)
+                else _gather_rows(item_e, _upload(torch.from_numpy(safe), dev,
+                                                  "block_rows"), impl)
             for bt in batches:
                 scores = _ref.score_block(bt[0], ie_blk, block_ids, bt[1],
                                           bt[2], b0)
@@ -236,4 +250,8 @@ def streaming_topk(user_e, item_e, k: int, *, user_ids=None,
             return t.transpose(0, 1).reshape(nb * ub, k)[:n_q]
 
         out_s, out_i = unshard(out_s), unshard(out_i)
-    return out_s.cpu().numpy(), out_i.cpu().numpy()
+    with trace.host_wait("scores"):
+        out_s = out_s.cpu().numpy()
+    with trace.host_wait("ids"):
+        out_i = out_i.cpu().numpy()
+    return out_s, out_i

@@ -88,6 +88,7 @@ from repro_torch.optim.compression import (dequantize_rows_int8,
                                            quantize_rows_int8,
                                            quantize_rows_int8_tensor)
 from repro_torch.optim.optimizers import tree_map_with_path
+from repro_torch import trace
 
 
 def _host_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -262,7 +263,8 @@ class TieredExecutor:
         """Wait until the device-to-host copies issued so far have landed
         (see the module docstring: host readers follow)."""
         if self._crosses:
-            torch.cuda.current_stream(self.device).synchronize()
+            with trace.host_wait("landed"):
+                torch.cuda.current_stream(self.device).synchronize()
 
     def _store(self, name: str, leaf):
         """Commit one host-store leaf: quantized tables keep (int8, scale)

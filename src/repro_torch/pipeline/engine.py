@@ -64,6 +64,7 @@ from repro_torch.pipeline.plan import build_train_plan, derive_eval_batch
 from repro_torch.pipeline.registry import get_model
 from repro_torch.pipeline.shard import ShardPlan
 from repro_torch.pipeline.sparse import BipartiteCSR
+from repro_torch import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,10 +299,15 @@ class Pipeline:
     # ---------------------------------------------------------------- step
     def _batch(self, a) -> torch.Tensor:
         """Index array -> int64 tensor on the device (a tensor already
-        there passes as it is)."""
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(self.device, torch.int64)
+        there passes as it is).  An upload to the card from host memory
+        waits for the card's queue to drain: a host wait."""
+        with trace.span("step::batch"):
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            if a.device.type == "cpu" and self.device.type != "cpu":
+                with trace.host_wait("upload"):
+                    return a.to(self.device, torch.int64)
+            return a.to(self.device, torch.int64)
 
     def loss(self, params, users, pos, neg) -> torch.Tensor:
         """The BPR loss of one microbatch through the model's forward
@@ -317,21 +323,23 @@ class Pipeline:
         leaf's gradient arrives reduce-scattered, summed over the ranks;
         a replicated leaf's is this rank's part alone."""
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        if weight is None or len(users):
+            users, pos, neg = (self._batch(a) for a in (users, pos, neg))
         with torch.enable_grad():
-            if weight is None:
-                loss = self.loss(live, self._batch(users), self._batch(pos),
-                                 self._batch(neg))
-            elif len(users):
-                loss = self.loss(self._gather_params(live),
-                                 self._batch(users), self._batch(pos),
-                                 self._batch(neg)) * weight
-            else:
-                # a rank with no rows still runs the forward and backward:
-                # their collectives need every rank
-                ue, ie = self.spec.forward(self._gather_params(live), self.g,
-                                           self.cfg.n_layers)
-                loss = (ue.sum() + ie.sum()) * 0.0
-            grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+            with trace.span("step::forward"):
+                if weight is None:
+                    loss = self.loss(live, users, pos, neg)
+                elif len(users):
+                    loss = self.loss(self._gather_params(live), users, pos,
+                                     neg) * weight
+                else:
+                    # a rank with no rows still runs the forward and
+                    # backward: their collectives need every rank
+                    ue, ie = self.spec.forward(self._gather_params(live),
+                                               self.g, self.cfg.n_layers)
+                    loss = (ue.sum() + ie.sum()) * 0.0
+            with trace.span("step::backward"):
+                grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
         return loss.detach(), tree_map(lambda _: next(grads), params)
 
     def grads_for_batch(self, params, users, pos, neg):
@@ -360,7 +368,9 @@ class Pipeline:
             loss_sum = wl if loss_sum is None else loss_sum + wl
             acc = wg if acc is None else tree_map(torch.add, acc, wg)
         loss_sum, acc = self.combine(loss_sum, acc)
-        return float(loss_sum), acc
+        with trace.host_wait("loss"):
+            loss = float(loss_sum)
+        return loss, acc
 
     def micro_grads(self, params, users, pos, neg, n: int):
         """One chunk's (loss, grads) weighted by its rows over the target
@@ -442,14 +452,19 @@ class Pipeline:
             self.seek(step)
         epoch = self.current_epoch()
         k = self.plan.microbatches_for_epoch(epoch)
-        users, pos, neg = self._next_target_batch(k, step)
-        state = self.executor.fetch(state)
+        with trace.span("step::batch"):
+            users, pos, neg = self._next_target_batch(k, step)
+        with trace.span("step::fetch"):
+            state = self.executor.fetch(state)
         loss, grads = self.grads_for_batch(state["params"], users, pos, neg)
         lr = torch.full((), self.lr_for_epoch(epoch), dtype=torch.float32,
                         device=self.device)
-        out = self.apply_update(state, grads, lr)
+        with trace.span("step::update"):
+            out = self.apply_update(state, grads, lr)
         self._next_step = step + 1
-        return self.executor.commit(out), loss
+        with trace.span("step::commit"):
+            state = self.executor.commit(out)
+        return state, loss
 
     def apply_update(self, state, grads, lr: torch.Tensor):
         """The update half of a step (the reference's ``_apply_update``):

@@ -41,6 +41,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.spmm import build_csr_by_dst
 from repro_torch.dist.collectives import gather_rows, rank_of
 from repro_torch.pipeline.shard import ShardPlan
+from repro_torch import trace
 
 HADAMARD_ROUTES = ("auto", "fused", "composed")
 
@@ -294,8 +295,9 @@ class BipartiteCSR:
         self.n_items = int(n_items)
         self.n_edges = len(user)
 
-        ui_indptr, ui_src, perm_ui = build_csr_by_dst(item, user, n_items)
-        iu_indptr, iu_src, perm_iu = build_csr_by_dst(user, item, n_users)
+        with trace.span("setup::csr"):
+            ui_indptr, ui_src, perm_ui = build_csr_by_dst(item, user, n_items)
+            iu_indptr, iu_src, perm_iu = build_csr_by_dst(user, item, n_users)
         # host copies of the user-CSR: the eval/serving seen-item set
         self._seen_indptr = np.asarray(iu_indptr, np.int64)
         self._seen_items = np.asarray(iu_src, np.int64)
