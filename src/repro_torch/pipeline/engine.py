@@ -24,6 +24,10 @@ schedule, placement plan and loader, and exposes the loop-consumable
                          kernels (``pipeline.sparse``), whose backwards
                          are kernels too;
   EdgeLoader           — deterministic, resumable microbatch stream;
+  one-step-ahead batch — on the card, each step builds the next step's
+                         target batch after enqueueing its own work and
+                         copies it from pinned memory while the card runs
+                         (``Pipeline._stage``);
 
 ShardPlan (``pipeline.shard``) — sharded execution, one process per
                          shard: row-sharded tables and Adam moments, the
@@ -188,7 +192,13 @@ class Pipeline:
         self.loader = EdgeLoader(train.user, train.item,
                                  batch=self.plan.global_microbatch,
                                  seed=cfg.seed)
-        self._next_step = 0
+        self._next_step = 0                # the step the loader builds next
+        # one-step-ahead staging (``_stage``): on the card, off the sharded
+        # route, whose ranks each slice the batch they build inline
+        self._stage_ahead = self.device.type == "cuda" and self.shard is None
+        self._staged = None                # (step, epoch, users, pos, neg)
+        self._slots = [None, None]         # pinned int32 [3 * rows] each
+        self._copied = [None, None]        # each slot's event after its copy
         self.eval_fn = None                # (state, step) -> metrics dict
         self._test_pos = None
         if holdout is not None:
@@ -298,9 +308,13 @@ class Pipeline:
 
     # ---------------------------------------------------------------- step
     def _batch(self, a) -> torch.Tensor:
-        """Index array -> int64 tensor on the device (a tensor already
-        there passes as it is).  An upload to the card from host memory
-        waits for the card's queue to drain: a host wait."""
+        """Index array -> int64 tensor on the device (an int64 tensor
+        already there, such as a staged batch, passes as it is).  An
+        upload to the card from pageable host memory waits for the card's
+        queue to drain: a host wait."""
+        if isinstance(a, torch.Tensor) and a.dtype == torch.int64 \
+                and a.device.type == self.device.type:
+            return a
         with trace.span("step::batch"):
             if not isinstance(a, torch.Tensor):
                 a = torch.from_numpy(np.ascontiguousarray(a))
@@ -354,6 +368,13 @@ class Pipeline:
         by its rows over the batch's, then the loss and the replicated
         leaves' gradients are all-reduced (the row-sharded leaves' were
         reduce-scattered in the backward)."""
+        loss, acc = self._grads(params, users, pos, neg)
+        with trace.host_wait("loss"):
+            loss = float(loss)
+        return loss, acc
+
+    def _grads(self, params, users, pos, neg):
+        """``grads_for_batch`` with the loss left on the device."""
         mu = self.plan.global_microbatch
         n = len(users)
         k = max(1, math.ceil(n / mu))
@@ -367,10 +388,7 @@ class Pipeline:
             wl, wg = self.micro_grads(params, u, p, ng, n)
             loss_sum = wl if loss_sum is None else loss_sum + wl
             acc = wg if acc is None else tree_map(torch.add, acc, wg)
-        loss_sum, acc = self.combine(loss_sum, acc)
-        with trace.host_wait("loss"):
-            loss = float(loss_sum)
-        return loss, acc
+        return self.combine(loss_sum, acc)
 
     def micro_grads(self, params, users, pos, neg, n: int):
         """One chunk's (loss, grads) weighted by its rows over the target
@@ -417,9 +435,15 @@ class Pipeline:
         st = self.loader.state
         return st.epoch * self.loader.steps_per_epoch() + st.step
 
-    def current_epoch(self) -> int:
-        """The epoch the next microbatch will come from."""
+    def _loader_epoch(self) -> int:
         return self._micro_pos() // self.loader.steps_per_epoch()
+
+    def current_epoch(self) -> int:
+        """The epoch the next step's first microbatch comes from (a staged
+        batch's own: the loader is a step ahead of it)."""
+        if self._staged is not None:
+            return self._staged[1]
+        return self._loader_epoch()
 
     def seek(self, step: int) -> None:
         """Position the loader as if ``step`` pipeline steps had already
@@ -442,29 +466,80 @@ class Pipeline:
             e = (g - 1) // spe
             self.loader.state = LoaderState(e, g - e * spe)
         self._next_step = step
+        self._staged = None
 
     def step_fn(self, state, step: int):
         """(state, step) -> (state, loss): one accumulated update.  Demoted
         leaves come to the device once for the whole step (the tables do
         not change inside one accumulated batch) and go back after the
-        update; identity when nothing is demoted."""
-        if step != self._next_step:
-            self.seek(step)
-        epoch = self.current_epoch()
-        k = self.plan.microbatches_for_epoch(epoch)
-        with trace.span("step::batch"):
-            users, pos, neg = self._next_target_batch(k, step)
+        update; identity when nothing is demoted.
+
+        On the card the step takes the batch the step before staged for
+        it (``_stage``); the first step, a step after ``seek`` and any
+        other step build theirs inline.  Once its work is enqueued, the
+        step stages the next one's, then reads its loss: one host wait,
+        which ends with the card's queue."""
+        staged, self._staged = self._staged, None
+        if staged is not None and staged[0] == step:
+            _, epoch, users, pos, neg = staged
+        else:
+            if step != self._next_step:
+                self.seek(step)
+            epoch = self._loader_epoch()
+            with trace.span("step::batch"):
+                users, pos, neg = self._next_target_batch(
+                    self.plan.microbatches_for_epoch(epoch), step)
+            self._next_step = step + 1
         with trace.span("step::fetch"):
             state = self.executor.fetch(state)
-        loss, grads = self.grads_for_batch(state["params"], users, pos, neg)
+        loss, grads = self._grads(state["params"], users, pos, neg)
         lr = torch.full((), self.lr_for_epoch(epoch), dtype=torch.float32,
                         device=self.device)
         with trace.span("step::update"):
             out = self.apply_update(state, grads, lr)
-        self._next_step = step + 1
+        if self._stage_ahead:
+            self._stage(step + 1)
         with trace.span("step::commit"):
             state = self.executor.commit(out)
+        with trace.host_wait("loss"):
+            loss = float(loss)
         return state, loss
+
+    def _stage(self, step: int) -> None:
+        """Build ``step``'s target batch now, the bytes an inline build
+        would give (``_next_target_batch`` at the loader's position), and
+        start it on its way to the device: the three int32 index arrays
+        into one of two pinned host slots (the step's parity), one
+        ``non_blocking`` copy on the current stream, widened to int64
+        there.  A slot is written again only after its last copy has run
+        (an event recorded after it; waited on, a host wait, only if it
+        has not passed)."""
+        with trace.span("step::stage"):
+            epoch = self._loader_epoch()
+            users, pos, neg = self._next_target_batch(
+                self.plan.microbatches_for_epoch(epoch), step)
+            self._next_step = step + 1
+            n, slot = len(users), step & 1
+            buf, copied = self._slots[slot], self._copied[slot]
+            if buf is None or buf.numel() < 3 * n:
+                # a slot that grows is freed to torch's pinned cache, which
+                # holds the block until its last copy has run
+                buf = self._slots[slot] = torch.empty(
+                    3 * n, dtype=torch.int32,
+                    pin_memory=self.device.type == "cuda")
+            elif copied is not None and not copied.query():
+                with trace.host_wait("staging"):
+                    copied.synchronize()
+            host = buf[:3 * n].view(3, n)
+            rows = host.numpy()
+            rows[0], rows[1], rows[2] = users, pos, neg
+            idx = host.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                if copied is None:
+                    copied = self._copied[slot] = torch.cuda.Event()
+                copied.record(torch.cuda.current_stream(self.device))
+            users, pos, neg = idx.to(torch.int64).unbind(0)
+            self._staged = (step, epoch, users, pos, neg)
 
     def apply_update(self, state, grads, lr: torch.Tensor):
         """The update half of a step (the reference's ``_apply_update``):

@@ -6,9 +6,10 @@ per-name totals.  A training step and a serving batch count the host
 waits they make.  The ``cuda`` tests put a span and its kineto range on
 one clock on the card, show that the benchmark's span reader turns no
 program range into device activity, count a step's waits with its
-tables on the card and in pinned host memory, and hold the counter to
-the card's own account: every synchronising call of a step or a serving
-batch lies inside a ``host_wait``:
+tables on the card and in pinned host memory (a step whose batch the
+step before staged waits on its loss alone), and hold the counter to
+the card's own account: every synchronising call of a step, staged or
+built inline, or of a serving batch lies inside a ``host_wait``:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_trace.py
 """
@@ -233,8 +234,9 @@ def test_span_and_its_kineto_range_share_one_clock_on_the_card(
     assert sorted(e.name for e in evs if e.kind == "span") == sorted(starts)
 
 
-# on the card a step also waits on each upload of a microbatch's three
-# index arrays: 1 + 3 x 2 with its tables on the card
+# on the card a step that builds its batch inline also waits on each
+# upload of a microbatch's three index arrays: 1 + 3 x 2 with its tables
+# on the card; a step whose batch the step before staged waits once
 _CARD_STEP_WAITS = 1 + 3 * 2
 
 
@@ -243,13 +245,16 @@ _CARD_STEP_WAITS = 1 + 3 * 2
                                         ({"_embed": "host"},
                                          _CARD_STEP_WAITS + 1)])
 def test_training_step_counts_its_host_waits_on_the_card(card, pins, waits):
-    """A step waits on the loss read and on every upload of a
-    microbatch's indices with its tables on the card, and once more
-    (``commit``'s copies landing) with them in host memory."""
+    """The first step builds inline: it waits on the loss read and on
+    every upload of a microbatch's indices with its tables on the card,
+    and once more (``commit``'s copies landing) with them in host memory;
+    the two steps after it take staged batches and wait on the loss read
+    (and the landing) alone."""
     pipe = _pipe("lightgcn", device=card, memory_topology="h100-hbm-host",
                  memory_pins=pins)
     assert (pipe.n_offloaded > 0) == (pins is not None)
-    assert _steps(pipe, 3)["counters"]["host_waits"] == 3 * waits
+    assert _steps(pipe, 3)["counters"]["host_waits"] == \
+        waits + 2 * (1 + (pins is not None))
 
 
 class _Witness:
@@ -306,24 +311,52 @@ class _Witness:
             trace.enable(False)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch,pins", [("lightgcn", None), ("ngcf", None),
-                                       ("lightgcn", {"_embed": "host"})])
-def test_every_wait_of_a_step_on_the_card_is_counted(card, monkeypatch,
-                                                     arch, pins):
-    """Every synchronising call a step makes on the card lies inside a
-    ``host_wait``, and the counter holds each."""
+def _witness_step(card, monkeypatch, arch, pins, step):
+    """The counts of ``step`` after step 0 (which builds the kernels and
+    stages step 1), under the witness; no synchronising call outside a
+    ``host_wait``, each inside one the counts hold."""
     pipe = _pipe(arch, device=card, memory_topology="h100-hbm-host",
                  memory_pins=pins)
     state = pipe.init_state()
-    state, _ = pipe.step_fn(state, 0)            # builds the kernels
+    state, _ = pipe.step_fn(state, 0)
     witness = _Witness(monkeypatch)
-    d = witness.run(lambda: pipe.step_fn(state, 1))
+    d = witness.run(lambda: pipe.step_fn(state, step))
     assert not witness.outside, witness.outside
+    waits = {n for n in _counts(d) if n.startswith("host_wait::")}
+    assert set(witness.inside) <= waits
+    assert _counts(d)["step::stage"] == 1
+    landed = {"host_wait::landed"} if pins is not None else set()
+    return d, waits - landed
+
+
+_WITNESSED = [("lightgcn", None), ("ngcf", None),
+              ("lightgcn", {"_embed": "host"})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,pins", _WITNESSED)
+def test_every_wait_of_a_step_on_the_card_is_counted(card, monkeypatch,
+                                                     arch, pins):
+    """Every synchronising call a step makes on the card lies inside a
+    ``host_wait``, and the counter holds each.  Step 1, whose batch step
+    0 staged, counts only the loss read (and ``commit``'s landing with
+    host tables) while it stages step 2."""
+    d, waits = _witness_step(card, monkeypatch, arch, pins, 1)
+    assert d["counters"]["host_waits"] == 1 + (pins is not None)
+    assert waits == {"host_wait::loss"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,pins", _WITNESSED)
+def test_every_wait_of_an_inline_step_on_the_card_is_counted(
+        card, monkeypatch, arch, pins):
+    """Step 3 after step 0 finds no batch staged for it and builds its
+    own: every synchronising call lies inside a ``host_wait``, the
+    uploads' among them."""
+    d, waits = _witness_step(card, monkeypatch, arch, pins, 3)
     assert d["counters"]["host_waits"] == \
         _CARD_STEP_WAITS + (pins is not None)
-    assert set(witness.inside) <= {n for n in _counts(d)
-                                   if n.startswith("host_wait::")}
+    assert waits == {"host_wait::loss", "host_wait::upload"}
 
 
 @pytest.mark.cuda
