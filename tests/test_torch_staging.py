@@ -135,7 +135,9 @@ def test_a_staged_step_counts_its_stage_span_and_one_wait(staged):
     """On the CPU a step waits once (the loss read) staged or not; a
     staged run enters ``step::stage`` once a step and ``step::batch``
     only in the step that builds inline (once, and once an upload: three
-    a microbatch)."""
+    a microbatch).  The four steps (3 an epoch) cross an epoch boundary:
+    two epochs handed over (``step::perm``), only the first drawn inline
+    (``step::perm_draw``), staged or not."""
     pipe = _pipe(warmup_epochs=0)
     pipe._stage_ahead = staged
     state = pipe.init_state()
@@ -152,6 +154,7 @@ def test_a_staged_step_counts_its_stage_span_and_one_wait(staged):
     assert counts.get("step::stage", 0) == (4 if staged else 0)
     assert counts["step::batch"] == (1 if staged else 4) * (1 + 3 * 2)
     assert counts["host_wait::loss"] == 4
+    assert (counts["step::perm"], counts["step::perm_draw"]) == (2, 1)
 
 
 @pytest.fixture

@@ -113,7 +113,7 @@ def test_names_lie_in_a_cpu_profiler_trace_on_its_clock(traced):
 def test_training_step_counts_its_host_waits(arch, on):
     """One wait a step on the CPU (the loss read; nothing is uploaded);
     the spans of each phase, the batch's once a step and once an upload (three a
-    microbatch)."""
+    microbatch), and the first epoch's hand-over, drawn inline."""
     pipe = _pipe(arch)
     trace.enable(on)
     try:
@@ -123,7 +123,8 @@ def test_training_step_counts_its_host_waits(arch, on):
     assert d["counters"]["host_waits"] == 2
     want = {"step::batch": 2 * (1 + 3 * 2), "step::fetch": 2,
             "step::forward": 4, "step::backward": 4, "step::update": 2,
-            "step::commit": 2, "host_wait::loss": 2}
+            "step::commit": 2, "host_wait::loss": 2,
+            "step::perm": 1, "step::perm_draw": 1}
     assert _counts(d) == (want if on else {})
 
 
