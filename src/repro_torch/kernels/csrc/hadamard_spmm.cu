@@ -32,28 +32,22 @@
 // registers and spills.)
 // Edges are accumulated in CSR order, each term rounded as a product and
 // then added (no FMA contraction), as the plain version rounds it.
-// kUnroll and the minimum resident blocks can be set at build time
-// (REPRO_HADAMARD_UNROLL, REPRO_HADAMARD_MIN_BLOCKS) for a sweep
-// (tools/hadamard_sweep.py); the chunk size is an argument.
+// kUnroll 4 and kMinBlocks 4 (with chunks of 1,024, an argument) came out
+// of a sweep on the H100 over chunks 256-4,096, unroll 2/4/8 and 2/3/4/6
+// blocks per SM: unroll 8 or 6 blocks per SM spilled registers (10.5-34.1
+// ms for one layer's four calls).
 #include <cuda_runtime.h>
 
 #include "launch.cuh"
 #include "row_split.cuh"
-
-#ifndef REPRO_HADAMARD_UNROLL
-#define REPRO_HADAMARD_UNROLL 4
-#endif
-#ifndef REPRO_HADAMARD_MIN_BLOCKS
-#define REPRO_HADAMARD_MIN_BLOCKS 4
-#endif
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = REPRO_HADAMARD_UNROLL;
-constexpr int kMinBlocks = REPRO_HADAMARD_MIN_BLOCKS;
+constexpr int kUnroll = 4;
+constexpr int kMinBlocks = 4;
 
 __device__ __forceinline__ float mac(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(a, b));

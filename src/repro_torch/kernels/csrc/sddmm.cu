@@ -50,25 +50,19 @@
 
 #include "launch.cuh"
 
-#ifndef REPRO_SDDMM_CHUNK
-#define REPRO_SDDMM_CHUNK 256
-#endif
-// Tuned on the H100 with tools/torch_kernel_ab.py --variants (PERF.md)
-#ifndef REPRO_SDDMM_UNROLL
-#define REPRO_SDDMM_UNROLL 2
-#endif
-#ifndef REPRO_SDDMM_MIN_BLOCKS
-#define REPRO_SDDMM_MIN_BLOCKS 4
-#endif
-
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = REPRO_SDDMM_UNROLL;  // edges in flight per warp
-constexpr int kChunk = REPRO_SDDMM_CHUNK;  // sorted positions per warp
-constexpr int kMinBlocks = REPRO_SDDMM_MIN_BLOCKS;  // resident blocks per SM asked of ptxas
+// Tuned on the H100 at D = 128 over chunk, unroll and minimum blocks:
+// unroll 2 at 4 blocks (<= 64 registers) took 'mul' 3.553 ms and 'dot'
+// 1.668; unroll 4 at 1 block (90 registers) 3.554 and 2.069; unroll 4 at
+// 3-4 blocks and unroll 8 3.73-4.42 ms (spills, or one block per SM);
+// chunks of 128-1,024 within 1 %.
+constexpr int kUnroll = 2;  // edges in flight per warp
+constexpr int kChunk = 256;  // sorted positions per warp
+constexpr int kMinBlocks = 4;  // resident blocks per SM asked of ptxas
 static_assert(kChunk % 32 == 0, "a chunk is whole batches of 32 positions");
 
 enum Op { kMul = 0, kAdd = 1, kDot = 2, kCopy = 3 };

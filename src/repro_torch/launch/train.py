@@ -247,7 +247,7 @@ def run_experiment(spec: ExperimentSpec, device="cuda"):
     say(f"[{spec.model.arch}] {report.steps_run} steps in {dt:.1f}s "
         f"loss {_loss_span(report)} "
         f"(microbatch={pipe.plan.microbatch}, "
-        f"accum={pipe.plan.microbatches_for_epoch(pipe.loader.state.epoch)}x, "
+        f"accum={pipe.plan.microbatches_for_epoch(pipe.consumed_epoch())}x, "
         f"resumed_from={report.resumed_from})")
     for step, m in report.eval_history:
         say(f"  eval@{step}: {_fmt_metrics(m)}")

@@ -24,10 +24,11 @@ schedule, placement plan and loader, and exposes the loop-consumable
                          kernels (``pipeline.sparse``), whose backwards
                          are kernels too;
   EdgeLoader           — deterministic, resumable microbatch stream;
-  one-step-ahead batch — on the card, each step builds the next step's
-                         target batch after enqueueing its own work and
-                         copies it from pinned memory while the card runs
-                         (``Pipeline._stage``);
+  one-step-ahead batch — on every device and route, each step builds the
+                         next step's target batch after enqueueing its own
+                         work and starts its copy from a pinned slot while
+                         the card runs (``Pipeline._stage``), so the loader
+                         stands a step ahead of the caller;
 
 ShardPlan (``pipeline.shard``) — sharded execution, one process per
                          shard: row-sharded tables and Adam moments, the
@@ -193,10 +194,7 @@ class Pipeline:
                                  batch=self.plan.global_microbatch,
                                  seed=cfg.seed)
         self._next_step = 0                # the step the loader builds next
-        # one-step-ahead staging (``_stage``): on the card, off the sharded
-        # route, whose ranks each slice the batch they build inline
-        self._stage_ahead = self.device.type == "cuda" and self.shard is None
-        self._staged = None                # (step, epoch, users, pos, neg)
+        self._staged = None                # (step, start, users, pos, neg)
         self._slots = [None, None]         # pinned int32 [3 * rows] each
         self._copied = [None, None]        # each slot's event after its copy
         self.eval_fn = None                # (state, step) -> metrics dict
@@ -308,20 +306,20 @@ class Pipeline:
 
     # ---------------------------------------------------------------- step
     def _batch(self, a) -> torch.Tensor:
-        """Index array -> int64 tensor on the device (an int64 tensor
-        already there, such as a staged batch, passes as it is).  An
-        upload to the card from pageable host memory waits for the card's
-        queue to drain: a host wait."""
+        """Index array -> int64 tensor on the device.  ``step_fn`` passes
+        its staged batch, which is one already and passes as it is; a
+        direct caller of ``value_and_grad`` or ``grads_for_batch`` may pass
+        numpy, uploaded here from pageable host memory, which waits for
+        the card's queue to drain: a host wait."""
         if isinstance(a, torch.Tensor) and a.dtype == torch.int64 \
                 and a.device.type == self.device.type:
             return a
-        with trace.span("step::batch"):
-            if not isinstance(a, torch.Tensor):
-                a = torch.from_numpy(np.ascontiguousarray(a))
-            if a.device.type == "cpu" and self.device.type != "cpu":
-                with trace.host_wait("upload"):
-                    return a.to(self.device, torch.int64)
-            return a.to(self.device, torch.int64)
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        if a.device.type == "cpu" and self.device.type != "cpu":
+            with trace.host_wait("upload"):
+                return a.to(self.device, torch.int64)
+        return a.to(self.device, torch.int64)
 
     def loss(self, params, users, pos, neg) -> torch.Tensor:
         """The BPR loss of one microbatch through the model's forward
@@ -435,15 +433,22 @@ class Pipeline:
         st = self.loader.state
         return st.epoch * self.loader.steps_per_epoch() + st.step
 
-    def _loader_epoch(self) -> int:
-        return self._micro_pos() // self.loader.steps_per_epoch()
-
     def current_epoch(self) -> int:
         """The epoch the next step's first microbatch comes from (a staged
         batch's own: the loader is a step ahead of it)."""
+        start = self._staged[1] if self._staged is not None \
+            else self._micro_pos()
+        return start // self.loader.steps_per_epoch()
+
+    def consumed_epoch(self) -> int:
+        """The loader's epoch as the steps run so far leave it, the batch
+        staged for the next step not counted: the reference's
+        ``loader.state.epoch`` after the same steps.  It rolls lazily, so
+        a step that ends an epoch leaves it in that epoch."""
         if self._staged is not None:
-            return self._staged[1]
-        return self._loader_epoch()
+            return max(0, self._staged[1] - 1) // \
+                self.loader.steps_per_epoch()
+        return self.loader.state.epoch
 
     def seek(self, step: int) -> None:
         """Position the loader as if ``step`` pipeline steps had already
@@ -474,22 +479,22 @@ class Pipeline:
         not change inside one accumulated batch) and go back after the
         update; identity when nothing is demoted.
 
-        On the card the step takes the batch the step before staged for
-        it (``_stage``); the first step, a step after ``seek`` and any
-        other step build theirs inline.  Once its work is enqueued, the
-        step stages the next one's, then reads its loss: one host wait,
-        which ends with the card's queue."""
-        staged, self._staged = self._staged, None
-        if staged is not None and staged[0] == step:
-            _, epoch, users, pos, neg = staged
-        else:
+        Every step takes its batch from ``_stage``, on every device and
+        route: the one the step before staged for it, or, for a step with
+        none staged for it (the first, one after ``seek`` and any other
+        out of order), one it stages itself at its own time, inside
+        ``step::batch``.  Once its work is enqueued, the step stages the
+        next one's, then reads its loss: one host wait, which ends with
+        the card's queue.  So the loader stands a step ahead of the
+        caller between steps (``current_epoch``, ``consumed_epoch``)."""
+        if self._staged is None or self._staged[0] != step:
             if step != self._next_step:
                 self.seek(step)
-            epoch = self._loader_epoch()
             with trace.span("step::batch"):
-                users, pos, neg = self._next_target_batch(
-                    self.plan.microbatches_for_epoch(epoch), step)
-            self._next_step = step + 1
+                self._stage(step)
+        _, start, users, pos, neg = self._staged
+        self._staged = None
+        epoch = start // self.loader.steps_per_epoch()
         with trace.span("step::fetch"):
             state = self.executor.fetch(state)
         loss, grads = self._grads(state["params"], users, pos, neg)
@@ -497,8 +502,7 @@ class Pipeline:
                         device=self.device)
         with trace.span("step::update"):
             out = self.apply_update(state, grads, lr)
-        if self._stage_ahead:
-            self._stage(step + 1)
+        self._stage(step + 1)
         with trace.span("step::commit"):
             state = self.executor.commit(out)
         with trace.host_wait("loss"):
@@ -506,18 +510,20 @@ class Pipeline:
         return state, loss
 
     def _stage(self, step: int) -> None:
-        """Build ``step``'s target batch now, the bytes an inline build
-        would give (``_next_target_batch`` at the loader's position), and
-        start it on its way to the device: the three int32 index arrays
-        into one of two pinned host slots (the step's parity), one
-        ``non_blocking`` copy on the current stream, widened to int64
-        there.  A slot is written again only after its last copy has run
-        (an event recorded after it; waited on, a host wait, only if it
-        has not passed)."""
+        """Build ``step``'s target batch now (``_next_target_batch`` at the
+        loader's position) and start it on its way to the device: the
+        three int32 index arrays into one of two host slots (the step's
+        parity; pinned on the card), one ``non_blocking`` copy on the
+        current stream, widened to int64 there.  On the CPU the copy is
+        the slot itself and the widening copies out of it; a sharded rank
+        slices its rows of each chunk from the staged tensors.  A slot is
+        written again only after its last copy has run (an event recorded
+        after it; waited on, a host wait, only if it has not passed)."""
         with trace.span("step::stage"):
-            epoch = self._loader_epoch()
+            start = self._micro_pos()
             users, pos, neg = self._next_target_batch(
-                self.plan.microbatches_for_epoch(epoch), step)
+                self.plan.microbatches_for_epoch(
+                    start // self.loader.steps_per_epoch()), step)
             self._next_step = step + 1
             n, slot = len(users), step & 1
             buf, copied = self._slots[slot], self._copied[slot]
@@ -539,7 +545,7 @@ class Pipeline:
                     copied = self._copied[slot] = torch.cuda.Event()
                 copied.record(torch.cuda.current_stream(self.device))
             users, pos, neg = idx.to(torch.int64).unbind(0)
-            self._staged = (step, epoch, users, pos, neg)
+            self._staged = (step, start, users, pos, neg)
 
     def apply_update(self, state, grads, lr: torch.Tensor):
         """The update half of a step (the reference's ``_apply_update``):

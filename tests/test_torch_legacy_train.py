@@ -6,7 +6,9 @@ through numpy and handed to the trainer), losses within rtol 1e-4; a run
 resumed from its checkpoint is bit-exact against the same steps taken in
 memory from the checkpointed state, and lands where the reference's
 resumed run does; the CLI runs each arch on the CPU and prints the loss
-span in the reference's format.
+span in the reference's format.  A pipeline run's closing line gives the
+reference's accumulation factor where the batch staged for the next
+step enters an epoch with another one.
 
 Both packages' trainers resume with a fresh ``default_rng(0)``: the
 resumed steps see the first batches again, as the reference's do.
@@ -130,6 +132,52 @@ def test_cli_runs_legacy_trainer_on_cpu(arch, tmp_path, capsys):
     name = "gcn" if arch == "gcn-cora" else arch
     assert re.fullmatch(rf"\[{name}\] loss \d+\.\d{{4}} -> \d+\.\d{{4}}",
                         out[-1]), out
+
+
+# quickstart runs 28 steps an epoch of one 256-row microbatch for two
+# warm-up epochs, then 7 steps of four: 56 steps end warm-up exactly.  At
+# 32-row microbatches and one warm-up epoch, warm-up steps take four and
+# step 56 crosses into the first epoch of 32.
+CLOSING_CASES = {
+    "warmup_ends_with_the_run": [],
+    "next_step_crosses_out_of_warmup": ["--set", "plan.microbatch=32",
+                                        "--set", "plan.warmup_epochs=1"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLOSING_CASES))
+def test_closing_line_gives_the_reference_accumulation(case, tmp_path,
+                                                       monkeypatch):
+    """The closing line's ``accum`` is the reference's, although the
+    port's loader stands a step ahead (the next step's batch is staged)
+    and that step draws at another accumulation factor."""
+    import contextlib
+    import io
+    runs = []
+    build = ttrain.Experiment.build
+
+    def keep(self, *a, **kw):
+        runs.append(build(self, *a, **kw))
+        return runs[-1]
+
+    monkeypatch.setattr(ttrain.Experiment, "build", keep)
+    lines = {}
+    for name, mod, kw in (("reference", jtrain, {}),
+                          ("port", ttrain, {"device": "cpu"})):
+        args = mod.build_arg_parser().parse_args(
+            ["--preset", "quickstart", "--steps", "56", "--ckpt-dir",
+             str(tmp_path / name)] + CLOSING_CASES[case])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            mod.run_experiment(mod.spec_from_args(args), **kw)
+        lines[name] = [ln for ln in out.getvalue().splitlines()
+                       if " steps in " in ln]
+    accum = {name: re.findall(r"accum=(\d+)x", ln[0])
+             for name, ln in lines.items()}
+    assert accum["port"] == accum["reference"], lines
+    pipe = runs[0].pipeline
+    assert pipe.plan.microbatches_for_epoch(pipe.loader.state.epoch) != \
+        int(accum["reference"][0])          # the loader reads a step ahead
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "kimi_k2_1t_a32b"])

@@ -206,8 +206,8 @@ def test_group_edges_layout():
 def test_kernel_constants_match_the_source():
     """CHUNK and UNROLL, which the replay uses, are the kernel's."""
     text = CSRC.read_text()
-    assert re.search(rf"#define REPRO_SDDMM_CHUNK {CHUNK}\b", text)
-    assert re.search(rf"#define REPRO_SDDMM_UNROLL {UNROLL}\b", text)
+    assert re.search(rf"constexpr int kChunk = {CHUNK};", text)
+    assert re.search(rf"constexpr int kUnroll = {UNROLL};", text)
 
 
 def test_groups_are_built_once_per_graph():

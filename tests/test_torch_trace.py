@@ -6,10 +6,11 @@ per-name totals.  A training step and a serving batch count the host
 waits they make.  The ``cuda`` tests put a span and its kineto range on
 one clock on the card, show that the benchmark's span reader turns no
 program range into device activity, count a step's waits with its
-tables on the card and in pinned host memory (a step whose batch the
-step before staged waits on its loss alone), and hold the counter to
-the card's own account: every synchronising call of a step, staged or
-built inline, or of a serving batch lies inside a ``host_wait``:
+tables on the card and in pinned host memory (a step waits on its loss
+alone, whether the step before staged its batch or it stages its own),
+and hold the counter to the card's own account: every synchronising call
+of a step, with its batch staged or not, or of a serving batch lies
+inside a ``host_wait``:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_trace.py
 """
@@ -111,9 +112,10 @@ def test_names_lie_in_a_cpu_profiler_trace_on_its_clock(traced):
 @pytest.mark.parametrize("on", [False, True])
 @pytest.mark.parametrize("arch", ["lightgcn", "ngcf"])
 def test_training_step_counts_its_host_waits(arch, on):
-    """One wait a step on the CPU (the loss read; nothing is uploaded);
-    the spans of each phase, the batch's once a step and once an upload (three a
-    microbatch), and the first epoch's hand-over, drawn inline."""
+    """One wait a step on the CPU (the loss read); the spans of each
+    phase, ``step::stage`` once a step for the next step and once more in
+    the first, which finds no batch staged and stages its own inside
+    ``step::batch``, and the first epoch's hand-over, drawn inline."""
     pipe = _pipe(arch)
     trace.enable(on)
     try:
@@ -121,7 +123,7 @@ def test_training_step_counts_its_host_waits(arch, on):
     finally:
         trace.enable(False)
     assert d["counters"]["host_waits"] == 2
-    want = {"step::batch": 2 * (1 + 3 * 2), "step::fetch": 2,
+    want = {"step::batch": 1, "step::stage": 3, "step::fetch": 2,
             "step::forward": 4, "step::backward": 4, "step::update": 2,
             "step::commit": 2, "host_wait::loss": 2,
             "step::perm": 1, "step::perm_draw": 1}
@@ -235,10 +237,10 @@ def test_span_and_its_kineto_range_share_one_clock_on_the_card(
     assert sorted(e.name for e in evs if e.kind == "span") == sorted(starts)
 
 
-# on the card a step that builds its batch inline also waits on each
-# upload of a microbatch's three index arrays: 1 + 3 x 2 with its tables
-# on the card; a step whose batch the step before staged waits once
-_CARD_STEP_WAITS = 1 + 3 * 2
+# on the card a step waits once with its tables on the card, the loss
+# read, whether the step before staged its batch or it stages its own
+# (from a slot whose last copy has run: that wait is the loss read's)
+_CARD_STEP_WAITS = 1
 
 
 @pytest.mark.cuda
@@ -246,16 +248,14 @@ _CARD_STEP_WAITS = 1 + 3 * 2
                                         ({"_embed": "host"},
                                          _CARD_STEP_WAITS + 1)])
 def test_training_step_counts_its_host_waits_on_the_card(card, pins, waits):
-    """The first step builds inline: it waits on the loss read and on
-    every upload of a microbatch's indices with its tables on the card,
-    and once more (``commit``'s copies landing) with them in host memory;
-    the two steps after it take staged batches and wait on the loss read
-    (and the landing) alone."""
+    """The first step finds no batch staged and stages its own; it and
+    the two steps after it, which take staged batches, each wait on the
+    loss read with the tables on the card, and once more (``commit``'s
+    copies landing) with them in host memory."""
     pipe = _pipe("lightgcn", device=card, memory_topology="h100-hbm-host",
                  memory_pins=pins)
     assert (pipe.n_offloaded > 0) == (pins is not None)
-    assert _steps(pipe, 3)["counters"]["host_waits"] == \
-        waits + 2 * (1 + (pins is not None))
+    assert _steps(pipe, 3)["counters"]["host_waits"] == 3 * waits
 
 
 class _Witness:
@@ -315,7 +315,8 @@ class _Witness:
 def _witness_step(card, monkeypatch, arch, pins, step):
     """The counts of ``step`` after step 0 (which builds the kernels and
     stages step 1), under the witness; no synchronising call outside a
-    ``host_wait``, each inside one the counts hold."""
+    ``host_wait``, each inside one the counts hold.  The step stages the
+    next step's batch, and its own first unless step 0 staged it."""
     pipe = _pipe(arch, device=card, memory_topology="h100-hbm-host",
                  memory_pins=pins)
     state = pipe.init_state()
@@ -325,7 +326,7 @@ def _witness_step(card, monkeypatch, arch, pins, step):
     assert not witness.outside, witness.outside
     waits = {n for n in _counts(d) if n.startswith("host_wait::")}
     assert set(witness.inside) <= waits
-    assert _counts(d)["step::stage"] == 1
+    assert _counts(d)["step::stage"] == (1 if step == 1 else 2)
     landed = {"host_wait::landed"} if pins is not None else set()
     return d, waits - landed
 
@@ -351,13 +352,16 @@ def test_every_wait_of_a_step_on_the_card_is_counted(card, monkeypatch,
 @pytest.mark.parametrize("arch,pins", _WITNESSED)
 def test_every_wait_of_an_inline_step_on_the_card_is_counted(
         card, monkeypatch, arch, pins):
-    """Step 3 after step 0 finds no batch staged for it and builds its
-    own: every synchronising call lies inside a ``host_wait``, the
-    uploads' among them."""
+    """Step 3 after step 0 finds no batch staged for it and stages its
+    own inside ``step::batch``: every synchronising call lies inside a
+    ``host_wait``, and it counts the loss read (and ``commit``'s landing
+    with host tables) alone: both slots' last copies ran before step 0's
+    loss read, so staging waits on neither."""
     d, waits = _witness_step(card, monkeypatch, arch, pins, 3)
+    assert _counts(d)["step::batch"] == 1
     assert d["counters"]["host_waits"] == \
         _CARD_STEP_WAITS + (pins is not None)
-    assert waits == {"host_wait::loss", "host_wait::upload"}
+    assert waits == {"host_wait::loss"}
 
 
 @pytest.mark.cuda
