@@ -2429,6 +2429,9 @@ def train_path(torch, dev, train):
     require(launches["hadamard_spmm"] == per_micro * 6
             and launches["spmm_csr"] == per_micro * 4,
             f"unexpected training launches {launches}")
+    shared = kernels.WRAPPERS["hadamard_spmm"].shared_launches
+    require(shared == per_micro * 2, f"{shared} shared-index hadamard_spmm "
+                                     f"launches, expected {per_micro * 2}")
     require(all(np.isfinite(s["loss"]) for s in steps), "non-finite loss")
     after = tree_leaves(state["params"])
     require(all(bool(torch.isfinite(t).all()) for t in after),
@@ -2449,7 +2452,7 @@ def train_path(torch, dev, train):
           "grad_max_abs": grad_max,
           "grad_tolerance": f"relative error in the norm <= {GRAD_RTOL} "
                             "per leaf; loss rtol " + str(RTOL),
-          "launches": launches})
+          "launches": launches, "hadamard_shared_launches": shared})
     return launches, pipe, (before[0], before[1])
 
 
@@ -2467,8 +2470,9 @@ def hadamard_bound(torch, x, y, indptr, x_idx, y_idx, n) -> tuple[float, float]:
 def time_hadamard(torch, pipe, params, errs):
     """``hadamard_spmm`` at the training path's shapes, on layer-0 inputs:
     the forward pair of one NGCF layer and the two backward calls of
-    ``hadamard_agg_item``; kernel, plain general version, the plain
-    structured route, and a two-call library yardstick."""
+    ``hadamard_agg_item``; kernel (the d_x call, on one index, takes its
+    shared-index route), plain general version, the plain structured
+    route, and a two-call library yardstick."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.hadamard_spmm import hadamard_spmm_plain
     g = pipe.g
@@ -2521,8 +2525,9 @@ def time_hadamard(torch, pipe, params, errs):
             del a
             b, f = hadamard_bound(torch, *args)
             b_ms, b_by = bound(b, f)
+            route = "shared" if xi_.data_ptr() == yi_.data_ptr() else "general"
             per_call.append({"call": name, "n_dst": n, "edges": int(xi_.numel()),
-                             "ms": t_k, "plain_ms": t_p,
+                             "ms": t_k, "kernel_route": route, "plain_ms": t_p,
                              "structured_plain_ms": t_s, "structure": structure,
                              "bound_ms": b_ms, "bound_by": b_by,
                              "two_call_yardstick": yard, "yardstick_ms": t_y})

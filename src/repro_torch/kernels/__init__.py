@@ -27,3 +27,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    hadamard_spmm_cuda.shared_launches = 0

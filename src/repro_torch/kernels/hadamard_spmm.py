@@ -8,7 +8,11 @@ the rematerialising backward (``pipeline/sparse.py``).
 
 Bound on the H100: memory.  A call reads two source rows per edge
 (2·E·D·4 bytes of gathers), 2·E·4 bytes of indices, and writes n·D·4
-bytes; one multiply and one add per gathered pair.  The kernel splits
+bytes; one multiply and one add per gathered pair.  Where ``x_idx`` and
+``y_idx`` are one tensor (NGCF's ``d_x``), a product kernel first forms
+p = x * y over the rows both tables hold, in a workspace of at most one
+[rows, D] table, and the chunk kernel gathers one row of p per edge
+(E·D·4 bytes of gathers, E·4 of indices).  The kernel splits
 the edges, not the rows, as ``spmm_csr.cu`` does: a merge-path partition
 (``row_split.py``, ``csrc/row_split.cuh``) cuts rows + edges into chunks
 of ``CHUNK`` items and one warp walks each, so the 256k-edge item row is
@@ -27,8 +31,12 @@ out of the aggregation and no [E, D] product is formed —
   * ``x_eq_y``    (x_idx_e == y_idx_e):   out = spmm(gather (x * y))
   * ``general``:  the naive gather/product/scatter (``ref``).
 
-The CUDA kernel needs no structure: it runs the general form on
-``x_idx``/``y_idx`` whatever ``structure`` says, as the Pallas route does.
+The CUDA route takes no ``structure``: it observes the indices instead.
+Index tensors with one ``data_ptr()`` (and, checked already, one length)
+take the shared-index route above, which is ``x_eq_y``'s factoring done
+bit for bit as the general form rounds it (each term the same rounded
+product, added in the same order over the same chunks); any other pair,
+``y_is_dst`` included, runs the general form, as the Pallas route does.
 """
 from __future__ import annotations
 
@@ -88,14 +96,31 @@ def hadamard_spmm_cuda(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
     n_chunks = rows.numel() - 1
     partial = torch.empty((n_chunks, 2, d), dtype=torch.float32,
                           device=x.device)
-    vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, out))
-    err = _build.entry("hadamard_spmm", "hadamard_spmm_f32")(
-        x.data_ptr(), y.data_ptr(), indptr.data_ptr(), x_idx.data_ptr(),
-        y_idx.data_ptr(), rows.data_ptr(), partial.data_ptr(),
-        scale.data_ptr() if scale is not None else None,
-        int(slope is not None), float(slope) if slope is not None else 0.0,
-        out.data_ptr(), n_nodes, n_chunks, CHUNK, d, int(vec4),
-        *_build.stream_of(x))
+    epilogue = (scale.data_ptr() if scale is not None else None,
+                int(slope is not None),
+                float(slope) if slope is not None else 0.0)
+    tail = (out.data_ptr(), n_nodes, n_chunks, CHUNK, d)
+    if x_idx.data_ptr() == y_idx.data_ptr():
+        # one index for both gathers: x * y once per shared row, then one
+        # gathered row per edge
+        n_shared = min(x.shape[0], y.shape[0])
+        prod = torch.empty((n_shared, d), dtype=torch.float32,
+                           device=x.device)
+        vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x, y, prod, out))
+        err = _build.entry("hadamard_spmm", "hadamard_spmm_shared_f32")(
+            x.data_ptr(), y.data_ptr(), n_shared, indptr.data_ptr(),
+            x_idx.data_ptr(), rows.data_ptr(), prod.data_ptr(),
+            partial.data_ptr(), *epilogue, *tail, int(vec4),
+            *_build.stream_of(x))
+        hadamard_spmm_cuda.shared_launches += 1
+    else:
+        vec4 = d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x, y, out))
+        err = _build.entry("hadamard_spmm", "hadamard_spmm_f32")(
+            x.data_ptr(), y.data_ptr(), indptr.data_ptr(), x_idx.data_ptr(),
+            y_idx.data_ptr(), rows.data_ptr(), partial.data_ptr(),
+            *epilogue, *tail, int(vec4), *_build.stream_of(x))
     if err:
         _build.check(_build.load("hadamard_spmm"), err, "hadamard_spmm")
     hadamard_spmm_cuda.launches += 1
@@ -103,6 +128,8 @@ def hadamard_spmm_cuda(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
 
 
 hadamard_spmm_cuda.launches = 0
+# the calls of ``launches`` that took the shared-index route
+hadamard_spmm_cuda.shared_launches = 0
 
 
 def _epilogue(out, scale, slope):

@@ -60,8 +60,10 @@ def hadamard_spmm(x, y, indptr, x_idx, y_idx, n_nodes, scale=None,
     """Fused gather-Hadamard-aggregate: out[v] = sum_{e: dst_e = v}
     x[x_idx_e] * y[y_idx_e] with an optional (scale, leaky-relu)
     epilogue.  ``structure`` is the caller-asserted index invariant the
-    plain route factors by; the CUDA kernel runs the general form on
-    ``x_idx``/``y_idx`` whatever it says."""
+    plain route factors by.  The CUDA route reads none of it: it observes
+    the indices, and where ``x_idx`` and ``y_idx`` are one tensor it forms
+    x * y once per node and gathers one row per edge, bit for bit the
+    general form's result; any other pair runs the general form."""
     if structure not in STRUCTURES:
         raise ValueError(f"structure must be one of {STRUCTURES}, "
                          f"got {structure!r}")

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import launch_counts, ops, ref
+from repro_torch.kernels import hadamard_spmm_cuda, launch_counts, ops, ref
 from repro_torch.kernels.spmm import build_csr_by_dst
 from repro_torch.optim.optimizers import tree_leaves
 from topk_nan_cases import CASES as NAN_CASES
@@ -138,11 +138,14 @@ def test_ngcf_training_step_on_card_matches_plain_route(dev):
         assert float((a - b).norm()) <= 1e-4 * float(b.norm())
     pipe.seek(0)
     before = launch_counts()
+    shared = hadamard_spmm_cuda.shared_launches
     new, loss = pipe.step_fn(state, 0)
     launched = {k: launch_counts()[k] - v for k, v in before.items()}
-    # per microbatch and layer: 2 fused Hadamard forward + 4 backward,
+    # per microbatch and layer: 2 fused Hadamard forward + 4 backward (of
+    # them the 2 d_x calls on one index, the shared-index route),
     # 2 adjacency SpMMs forward + 2 backward
     assert launched["hadamard_spmm"] == 2 * 2 * 6
+    assert hadamard_spmm_cuda.shared_launches - shared == 2 * 2 * 2
     assert launched["spmm_csr"] == 2 * 2 * 4
     assert abs(loss - loss_k) <= 1e-6 * abs(loss_k)
     assert not torch.equal(new["params"]["w1"][0], state["params"]["w1"][0])
@@ -487,6 +490,51 @@ def test_hadamard_kernel_splits_long_rows(dev, case, epilogue, integer):
         abs_kw = dict(scale=scale.abs()) if epilogue else {}
         abs_sum = ref.hadamard_spmm_ref(x.abs(), y.abs(), *args, **abs_kw)
         assert bool(((got - want).abs() <= 1e-5 + 1e-5 * abs_sum).all())
+    empty = torch.from_numpy(np.diff(indptr[: n + 1]) == 0).to(dev)
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.parametrize("d", [128, 6])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("case", ["long_row", "boundaries", "no_edges",
+                                  "long_indptr"])
+def test_hadamard_shared_index_bitwise_equals_general(dev, case, epilogue,
+                                                      integer, d):
+    """One index tensor as both x_idx and y_idx (the shared-index route:
+    x * y formed once per node, one gathered row per edge) against the
+    same content in two tensors (the general route), bit for bit, on the
+    split graphs, with and without the epilogue, integer-valued and normal
+    inputs, D = 128 (float4 lanes) and D = 6 (scalar lanes), x and y of
+    different row counts; one launch per call, and only the shared call
+    counted in ``shared_launches``."""
+    from repro_torch.kernels.hadamard_spmm import CHUNK
+    rng = np.random.default_rng(len(case) + 10 * epilogue + d)
+    indptr, n, src = _split_graph(case, CHUNK, rng)
+
+    def feats(*shape):
+        if integer:
+            return rng.integers(-3, 4, shape).astype(np.float32)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x = torch.from_numpy(feats(500, d)).to(dev)
+    y = torch.from_numpy(feats(620, d)).to(dev)
+    scale = torch.from_numpy(feats(n)).to(dev)
+    ip = torch.from_numpy(indptr).to(dev)
+    idx = torch.from_numpy(src).to(dev)
+    kw = dict(scale=scale, slope=0.2) if epilogue else {}
+    before = launch_counts()["hadamard_spmm"]
+    shared = hadamard_spmm_cuda.shared_launches
+    got = ops.hadamard_spmm(x, y, ip, idx, idx, n, **kw)
+    assert hadamard_spmm_cuda.shared_launches == shared + (len(src) > 0)
+    general = ops.hadamard_spmm(x, y, ip, idx, idx.clone(), n, **kw)
+    assert hadamard_spmm_cuda.shared_launches == shared + (len(src) > 0)
+    assert launch_counts()["hadamard_spmm"] == before + 2 * (len(src) > 0)
+    assert torch.equal(got, general)
+    assert torch.equal(got, ops.hadamard_spmm(x, y, ip, idx, idx, n, **kw))
+    if integer:
+        assert torch.equal(got, ref.hadamard_spmm_ref(x, y, ip, idx, idx, n,
+                                                      **kw))
     empty = torch.from_numpy(np.diff(indptr[: n + 1]) == 0).to(dev)
     assert bool((got[empty] == 0).all())
 

@@ -14,7 +14,12 @@ the destination, as in NGCF's forward and its d_y call).  The replay is
 held to the port's plain version and the reference's XLA oracle: bitwise
 on integer-valued rows (every sum exact), else within 1e-5 + 1e-5 x the
 sum of |terms| (each chunk adds up to T terms in series); and, on a
-small case, to the reference's Pallas kernel in interpret mode."""
+small case, to the reference's Pallas kernel in interpret mode.
+``emulate_shared`` replays the kernel's shared-index route (x_idx is
+y_idx, as in NGCF's d_x): x * y formed once per row both tables hold,
+one row of it per edge through the same two passes; it is held bit for
+bit to ``emulate`` with the index passed twice, on tables of different
+row counts."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,19 +35,32 @@ RTOL = ATOL = 1e-5
 SLOPE = 0.2
 
 
-def emulate(x, y, indptr, x_idx, y_idx, n, t, scale=None, slope=None):
-    """The kernel's two passes: fp32 products summed per chunk in edge
-    order, split rows combined in chunk order, the epilogue once per row."""
-    terms = x[x_idx] * y[y_idx]
-
+def _finisher(scale, slope):
+    """The (scale, leaky-relu) epilogue of one complete row."""
     def finish(r, acc):
         v = acc * scale[r] if scale is not None else acc
         if slope is not None:
             v = np.where(v >= 0, v, v * np.float32(slope))
         return v.astype(np.float32)
+    return finish
 
+
+def emulate(x, y, indptr, x_idx, y_idx, n, t, scale=None, slope=None):
+    """The kernel's two passes: fp32 products summed per chunk in edge
+    order, split rows combined in chunk order, the epilogue once per row."""
+    terms = x[x_idx] * y[y_idx]
     return replay(terms, indptr, n, len(x_idx), t, np.add, np.float32(0.0),
-                  finish)
+                  _finisher(scale, slope))
+
+
+def emulate_shared(x, y, indptr, idx, n, t, scale=None, slope=None):
+    """The shared-index route: the product kernel's p = x * y over the
+    rows both tables hold, then the same two passes over one row of p per
+    edge."""
+    rows = min(len(x), len(y))
+    prod = x[:rows] * y[:rows]
+    return replay(prod[idx], indptr, n, len(idx), t, np.add,
+                  np.float32(0.0), _finisher(scale, slope))
 
 
 def _inputs(case, t, structure, integer, seed):
@@ -118,3 +136,31 @@ def test_two_pass_emulation_matches_pallas_interpret(epilogue, structure):
         jnp.asarray(x_idx), jnp.asarray(y_idx), n, row_block=4,
         interpret=True, **jk))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("case,t", cases(CHUNK))
+def test_shared_index_emulation_matches_general_bitwise(case, t, epilogue,
+                                                        integer):
+    """x_idx is y_idx: the shared-index replay equals the general replay
+    with the index passed twice, bit for bit, on x of 97 rows and y of 131
+    (the product covers the 97 both hold), with and without the epilogue,
+    on integer-valued and normal inputs."""
+    indptr, n, idx = graph(case, t, seed=t + 7)
+    rng = np.random.default_rng(t + 8)
+
+    def feats(*shape):
+        if integer:
+            return rng.integers(-3, 4, shape).astype(np.float32)
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x, y, scale = feats(97, 8), feats(131, 8), feats(n)
+    kw = dict(scale=scale, slope=SLOPE) if epilogue else {}
+    got = emulate_shared(x, y, indptr, idx, n, t, **kw)
+    np.testing.assert_array_equal(
+        got, emulate(x, y, indptr, idx, idx, n, t, **kw))
+    empty = np.diff(indptr[: n + 1]) == 0
+    np.testing.assert_array_equal(got[empty], 0.0)
+    if case != "no_edges":
+        assert np.isfinite(got).all() and (got != 0).any()
