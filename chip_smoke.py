@@ -266,6 +266,12 @@ TOLERANCE = {
                      "element; repeated calls bitwise",
     "ann_block_scores": "bitwise on integer-valued users (radius on and "
                         f"off); else allclose rtol={RTOL} atol={ATOL}",
+    "intent_spmm": "bitwise on integer-valued inputs (row-split cases "
+                   f"included); else |err| <= {ATOL} + {RTOL} * sum of "
+                   "|terms| per element; repeated calls bitwise",
+    "intent_sddmm": "bitwise on integer-valued inputs (row-split cases "
+                    f"included); else |err| <= {ATOL} + {RTOL} * sum of "
+                    "|terms| per element; repeated calls bitwise",
     "sddmm": "bitwise on integer-valued inputs and on 'mul' at the main "
              "shape, walking user groups or the edge order, and grouped "
              f"equal to ungrouped; else allclose rtol={RTOL} atol={ATOL} "
@@ -285,6 +291,9 @@ KERNELS = {
                          "src/repro/kernels/ann.py:41"),
     "sddmm": ("src/repro_torch/kernels/csrc/sddmm.cu",
               "src/repro/kernels/sddmm.py:79"),
+    # DGCF's routing: no TPU kernel to replace (the JAX package has no DGCF)
+    "intent_spmm": ("src/repro_torch/kernels/csrc/intent_spmm.cu", None),
+    "intent_sddmm": ("src/repro_torch/kernels/csrc/intent_sddmm.cu", None),
 }
 # the kernels each main path runs
 SERVING_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
@@ -294,6 +303,7 @@ COO_KERNELS = ("sddmm",)
 API_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 TIERED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
 SHARDED_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score")
+DGCF_KERNELS = ("intent_spmm", "intent_sddmm")
 AUDIT_KERNELS = ("spmm_csr", "embedding_bag", "fused_topk_score",
                  "hadamard_spmm")
 # spmm_csr's row-split cases (check_spmm); gathered rows come from a table
@@ -888,6 +898,177 @@ def check_hadamard_split(torch, dev, rng) -> float:
                     require(bool((got[empty] == 0).all()),
                             f"{what}: empty row != 0")
     return worst
+
+
+def _intent_call(torch, ops, ref, name, args, integer, what):
+    """One intent kernel call against its plain version, made twice:
+    (max |err|, output); bitwise on integers, else within the sum of
+    |terms|."""
+    got = getattr(ops, name)(*args, impl="cuda")
+    again = getattr(ops, name)(*args, impl="cuda")
+    require(torch.equal(got, again), f"{what}: two calls differ")
+    want = getattr(ref, name + "_ref")(*args)
+    if integer:
+        require(torch.equal(got, want), f"{what}: not bitwise on integers")
+        return 0.0
+    abs_sum = getattr(ref, name + "_ref")(args[0].abs(), args[1].abs(),
+                                          *args[2:])
+    return close_sum(torch, got, want, abs_sum, what)
+
+
+def check_intent(torch, dev, rng) -> dict:
+    """``intent_spmm`` and ``intent_sddmm`` (DGCF) against their plain
+    versions: D 64 with K 4 (the cell's), D 16, 32 and 128 with K 4, D 8
+    with K 2 (``intent_sddmm``'s float route) and D 12 with K 3
+    (``intent_spmm``'s float route); empty rows, E = 0; then the row
+    split's cases (``split_graph`` at the kernels' chunk: a Zipf row of
+    120,000 edges over ~117 chunks, rows of T - 1, T and T + 1 edges, a
+    row on a chunk boundary, E = 0, an over-long indptr) at D 64, K 4.
+    Integer-valued inputs bitwise, real-valued within ATOL + RTOL x the
+    sum of |terms|; each call twice, bitwise equal."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.intent import CHUNK
+    from repro_torch.kernels.spmm import build_csr_by_dst
+    worst = {"intent_spmm": 0.0, "intent_sddmm": 0.0}
+
+    def data(shape, integer):
+        a = rng.integers(-3, 4, shape) if integer \
+            else rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    cases = [(1000, 800, 6000, 64, 4), (333, 200, 2000, 16, 4),
+             (333, 200, 2000, 32, 4), (500, 300, 3000, 128, 4),
+             (60, 50, 400, 8, 2), (60, 50, 400, 12, 3), (7, 9, 0, 64, 4)]
+    for n_src, n, e, d, k in cases:
+        dst = rng.integers(0, max(n // 2, 1), e)
+        indptr, src, _ = build_csr_by_dst(dst, rng.integers(0, n_src, e), n)
+        ip = torch.from_numpy(indptr).to(dev, torch.int64)
+        s = torch.from_numpy(src).to(dev)
+        empty = torch.from_numpy(np.diff(indptr) == 0).to(dev)
+        for integer in (True, False):
+            what = f"n={n} e={e} d={d} k={k} integer={integer}"
+            x, w = data((n_src, d), integer), data((e, k), integer)
+            err = _intent_call(torch, ops, ref, "intent_spmm",
+                               (w, x, ip, s, n), integer,
+                               f"intent_spmm {what}")
+            worst["intent_spmm"] = max(worst["intent_spmm"], err)
+            got = ops.intent_spmm(w, x, ip, s, n, impl="cuda")
+            require(bool((got[empty] == 0).all()), "intent_spmm empty row != 0")
+            if d == 12:
+                continue                 # intent_sddmm takes D / K a power of 2
+            a = data((n, d), integer)
+            err = _intent_call(torch, ops, ref, "intent_sddmm",
+                               (a, x, ip, s, k), integer,
+                               f"intent_sddmm {what}")
+            worst["intent_sddmm"] = max(worst["intent_sddmm"], err)
+    for case in SPLIT_CASES:
+        indptr, n, src = split_graph(case, rng, CHUNK)
+        e = len(src)
+        ip = torch.from_numpy(indptr).to(dev)
+        s = torch.from_numpy(src).to(dev)
+        for integer in (True, False):
+            what = f"split {case} integer={integer}"
+            x, w = data((SPLIT_SRC_ROWS, EMBED_DIM // 2), integer), \
+                data((e, 4), integer)
+            worst["intent_spmm"] = max(worst["intent_spmm"], _intent_call(
+                torch, ops, ref, "intent_spmm", (w, x, ip, s, n), integer,
+                f"intent_spmm {what}"))
+            a = data((len(indptr) - 1, EMBED_DIM // 2), integer)
+            worst["intent_sddmm"] = max(worst["intent_sddmm"], _intent_call(
+                torch, ops, ref, "intent_sddmm", (a, x, ip, s, 4), integer,
+                f"intent_sddmm {what}"))
+    return worst
+
+
+def intent_bound(torch, name, args) -> tuple[float, float]:
+    """(bytes, flops) the call must move and do (``perfbench/rooflines/``'s
+    counts): each distinct gathered row read once, the rows of a with an
+    edge once, indices, [E, K] weights or dots, row pointers, output."""
+    first, x, indptr, src, last = args
+    d, e = x.shape[1], src.numel()
+    rows = int(torch.unique(src).numel()) * d * 4
+    if name == "intent_spmm":
+        k = first.shape[1]
+        rest = e * k * 4 + last * d * 4
+    else:
+        k = last
+        rest = e * k * 4 + int((indptr[1:] > indptr[:-1]).sum()) * d * 4
+    return rows + e * 4 + indptr.numel() * 8 + rest, 2.0 * e * d
+
+
+def time_intent(torch, pipe, errs):
+    """DGCF's two kernels at the training path's graph, D 64 and K 4 (the
+    dgcf-full configuration's widths): both directions of each, kernel
+    against plain version and bound; then one DGCF forward and backward
+    through the pipeline's ``BipartiteCSR`` on the kernels against the
+    same on the plain route (the tables' gradients), and its launches."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.pipeline import get_model
+    g = pipe.g
+    dev = g.device
+    d, k = EMBED_DIM // 2, 4
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xu = torch.randn((N_USERS, d), generator=gen, device=dev)
+    xi = torch.randn((N_ITEMS, d), generator=gen, device=dev)
+    w = torch.softmax(torch.randn((g.n_edges, k), generator=gen, device=dev), 1)
+    calls = [("intent_spmm", "user rows", (w, xi, g.iu_indptr, g.iu_src,
+                                            N_USERS)),
+             ("intent_spmm", "item rows", (w, xu, g.ui_indptr, g.ui_src,
+                                            N_ITEMS)),
+             ("intent_sddmm", "user rows", (xu, xi, g.iu_indptr, g.iu_src, k)),
+             ("intent_sddmm", "item rows", (xi, xu, g.ui_indptr, g.ui_src, k))]
+    out = {n: dict(ms=0.0, plain_ms=0.0, bytes=0.0, flops=0.0, per_call=[])
+           for n in DGCF_KERNELS}
+    for name, rows, args in calls:
+        fn = getattr(ops, name)
+        plain = getattr(ref, name + "_ref")
+        got, want = fn(*args, impl="cuda"), plain(*args)
+        abs_sum = plain(args[0].abs(), args[1].abs(), *args[2:])
+        errs[name] = max(errs[name], close_sum(torch, got, want, abs_sum,
+                                               f"{name} {rows}"))
+        del got, want, abs_sum
+        t_k = cuda_ms(torch, lambda: fn(*args, impl="cuda"), reps=5)
+        t_p = cuda_ms(torch, lambda: plain(*args), reps=2, warmup=1)
+        b, f = intent_bound(torch, name, args)
+        b_ms, b_by = bound(b, f)
+        rec = out[name]
+        rec["per_call"].append({"call": rows, "edges": g.n_edges, "ms": t_k,
+                                "plain_ms": t_p, "bound_ms": b_ms,
+                                "bound_by": b_by})
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("bytes", b),
+                       ("flops", f)):
+            rec[key] += v
+    for rec in out.values():
+        rec["bound_ms"], rec["bound_by"] = bound(rec.pop("bytes"),
+                                                 rec.pop("flops"))
+        rec["library_ms"] = None
+    spec = get_model("dgcf")
+
+    def grads():
+        p = {"user_embed": xu.clone().requires_grad_(True),
+             "item_embed": xi.clone().requires_grad_(True)}
+        ue, ie = spec.forward(p, g, 1)
+        loss = (ue * ue).sum() + (ie * ie).sum()
+        return torch.autograd.grad(loss, [p["user_embed"], p["item_embed"]])
+
+    kernels.reset_launch_counts()
+    with torch.enable_grad():
+        got = grads()
+        launches = {n: kernels.launch_counts()[n] for n in DGCF_KERNELS}
+        g.impl = "torch"
+        try:
+            want = grads()
+        finally:
+            g.impl = None
+    grad_err = max(float((a - b).norm() / b.norm()) for a, b in zip(got, want))
+    require(grad_err <= GRAD_RTOL, f"dgcf gradients: {grad_err} over "
+            f"{GRAD_RTOL} relative in the norm against the plain route")
+    emit({"phase": "dgcf", "kernels": {n: {k_: v for k_, v in r.items()}
+                                       for n, r in out.items()},
+          "grad_rel_err_vs_plain": grad_err, "launches": launches,
+          "work": f"D={d}, K={k}, {g.n_edges} edges"})
+    return out, launches
 
 
 def check_ann(torch, dev, rng) -> float:
@@ -3852,7 +4033,8 @@ def main() -> int:
                 "embedding_bag": check_embedding_bag(torch, dev, rng),
                 "fused_topk_score": check_topk(torch, dev, rng),
                 "hadamard_spmm": check_hadamard(torch, dev, rng),
-                "ann_block_scores": check_ann(torch, dev, rng)}
+                "ann_block_scores": check_ann(torch, dev, rng),
+                **check_intent(torch, dev, rng)}
         emit({"phase": "adversarial", "max_abs_err": errs})
     _free(torch)
     models = models_phase(torch, dev)
@@ -3885,6 +4067,8 @@ def main() -> int:
               "max_abs_err": errs["hadamard_spmm"],
               "tolerance": TOLERANCE["hadamard_spmm"]})
     times["hadamard_spmm"] = dict(had["forward"], library_ms=None)
+    intent_times, dgcf_launches = time_intent(torch, pipe, errs)
+    times.update(intent_times)
     del layer0
     torch.cuda.empty_cache()
     api_launches, api_eval_s, full_audit = api_phase(torch, dev, train,
@@ -3916,7 +4100,8 @@ def main() -> int:
              "tiered_train": {k: tiered_launches[k]
                               for k in TIERED_KERNELS},
              "sharded": {k: sharded_launches[k] for k in SHARDED_KERNELS},
-             "audit": {k: audit_launches[k] for k in AUDIT_KERNELS}}
+             "audit": {k: audit_launches[k] for k in AUDIT_KERNELS},
+             "dgcf": dgcf_launches}
     emit({"launches_by_path": paths})
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -5,6 +5,7 @@ from __future__ import annotations
 from repro_torch.kernels.ann import ann_block_scores_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.hadamard_spmm import hadamard_spmm_cuda
+from repro_torch.kernels.intent import intent_sddmm_cuda, intent_spmm_cuda
 from repro_torch.kernels.sddmm import sddmm_cuda
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import fused_topk_score_cuda
@@ -16,6 +17,8 @@ WRAPPERS = {
     "hadamard_spmm": hadamard_spmm_cuda,
     "ann_block_scores": ann_block_scores_cuda,
     "sddmm": sddmm_cuda,
+    "intent_spmm": intent_spmm_cuda,
+    "intent_sddmm": intent_sddmm_cuda,
 }
 
 

@@ -46,6 +46,14 @@ SIGNATURES = {
         "hadamard_spmm_shared_f32": (_P, _P, _L, _P, _P, _P, _P, _P, _P, _I,
                                      _F, _P, _I, _L, _L, _I, _I, _I, _P),
     },
+    "intent_spmm": {
+        "intent_spmm_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I,
+                            _I, _I, _P),
+    },
+    "intent_sddmm": {
+        "intent_sddmm_f32": (_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
+                             _I, _P),
+    },
     "embedding_bag": {
         "embedding_bag_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),

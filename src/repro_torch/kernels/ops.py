@@ -14,6 +14,7 @@ from repro_torch.kernels.ann import ann_block_scores_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.kernels.hadamard_spmm import (STRUCTURES, hadamard_spmm_cuda,
                                                hadamard_spmm_plain)
+from repro_torch.kernels.intent import intent_sddmm_cuda, intent_spmm_cuda
 from repro_torch.kernels.sddmm import _Sddmm
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import fused_topk_score_cuda
@@ -73,6 +74,24 @@ def hadamard_spmm(x, y, indptr, x_idx, y_idx, n_nodes, scale=None,
                                    structure=structure)
     return hadamard_spmm_cuda(x, y, indptr, x_idx, y_idx, n_nodes,
                               scale=scale, slope=slope)
+
+
+def intent_spmm(w, x, indptr, src, n_nodes, impl=None):
+    """Intent-weighted CSR aggregation (DGCF): out[v, chunk k] = sum over
+    v's edges of w[e, k] * x[src_e, chunk k], K = w.shape[1] chunks of
+    D/K columns (``kernels/intent.py``)."""
+    if route(impl, x) == "torch":
+        return _ref.intent_spmm_ref(w, x, indptr, src, n_nodes)
+    return intent_spmm_cuda(w, x, indptr, src, n_nodes)
+
+
+def intent_sddmm(a, b, indptr, src, n_factors, impl=None):
+    """Per-edge, per-intent dots over a CSR (DGCF's agreement): s[e, k] =
+    <a[row_e, chunk k], b[src_e, chunk k]>, f32[E, n_factors]
+    (``kernels/intent.py``)."""
+    if route(impl, a) == "torch":
+        return _ref.intent_sddmm_ref(a, b, indptr, src, n_factors)
+    return intent_sddmm_cuda(a, b, indptr, src, n_factors)
 
 
 def embedding_bag(table, ids, mask, combiner="sum", impl=None):

@@ -90,6 +90,51 @@ def hadamard_spmm_ref(x: torch.Tensor, y: torch.Tensor, indptr: torch.Tensor,
     return out
 
 
+def _edge_rows(indptr: torch.Tensor, n_edges: int,
+               dev: torch.device) -> torch.Tensor:
+    """The CSR row of each edge, from ``indptr`` (int64 [E])."""
+    return torch.searchsorted(indptr.to(dev, torch.int64),
+                              torch.arange(n_edges, device=dev),
+                              right=True) - 1
+
+
+def intent_spmm_ref(w: torch.Tensor, x: torch.Tensor, indptr: torch.Tensor,
+                    src: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """Intent-weighted CSR aggregation: out[v, chunk k] = sum over e in
+    [indptr[v], indptr[v+1]) of w[e, k] * x[src[e], chunk k], chunk k
+    being the columns [k·D/K, (k+1)·D/K) of K = w.shape[1] chunks.  Each
+    term is rounded as a product and added onto zeros in edge order, as
+    the kernel adds a row that ends in its chunk.  w: f32[E, K]; x:
+    f32[N_src, D] -> f32[n_nodes, D] (float64 in, float64 out: the
+    gradient checks)."""
+    dev = x.device
+    e, k = w.shape
+    d = x.shape[1]
+    dst = _edge_rows(indptr, e, dev)
+    msgs = (x[src.to(dev).long()].view(e, k, d // k)
+            * w[:, :, None]).view(e, d)
+    if e and int(dst[-1]) >= n_nodes:        # edges past the last row drop
+        keep = dst < n_nodes
+        dst, msgs = dst[keep], msgs[keep]
+    out = torch.zeros((n_nodes, d), dtype=msgs.dtype, device=dev)
+    return out.index_add_(0, dst, msgs)
+
+
+def intent_sddmm_ref(a: torch.Tensor, b: torch.Tensor, indptr: torch.Tensor,
+                     src: torch.Tensor, n_factors: int) -> torch.Tensor:
+    """Per-edge, per-intent dots over a CSR: s[e, k] = <a[row_e, chunk
+    k], b[src[e], chunk k]>, row_e the CSR row of edge e and chunk k the
+    columns [k·D/K, (k+1)·D/K).  a: f32[n_rows, D]; b: f32[N_src, D] ->
+    f32[E, K] (float64 in, float64 out)."""
+    dev = a.device
+    e = src.shape[0]
+    d = a.shape[1]
+    rows = _edge_rows(indptr, e, dev)
+    pa = a[rows].view(e, n_factors, d // n_factors)
+    pb = b[src.to(dev).long()].view(e, n_factors, d // n_factors)
+    return (pa * pb).sum(-1)
+
+
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       mask: torch.Tensor | None,
                       combiner: str = "sum") -> torch.Tensor:

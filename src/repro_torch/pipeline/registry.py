@@ -9,15 +9,21 @@
              (no [E, D] matrix) or, composed, one [E, D] product per
              layer reused for both directions; node-level matmuls.
   gcn      — sym-normalised propagate + per-layer weight + ReLU.
+  dgcf     — Wang et al. SIGIR'20 (arXiv:2007.01764): K intent chunks,
+             per-edge routing over them refined by T iterations a layer
+             (``core/dgcf.py``; the published K = 4, T = 2); LightGCN's
+             tables, draw and layer mean.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
 import torch
 
+from repro_torch.core import dgcf as _dgcf
 from repro_torch.core import lightgcn as _lightgcn
 from repro_torch.core import ngcf as _ngcf
 from repro_torch.device import resolve_device
@@ -132,6 +138,12 @@ MODELS = {
                       materializes_messages=True, concat_layers=True),
     "gcn": ModelSpec("gcn", _gcn_init, _gcn_forward,
                      materializes_messages=False),
+    # the tables as LightGCN's; per-edge state is [E, K], no [E, D] matrix
+    "dgcf": ModelSpec("dgcf", _lightgcn_init,
+                      functools.partial(_dgcf.forward,
+                                        n_factors=_dgcf.N_FACTORS,
+                                        n_iterations=_dgcf.N_ITERATIONS),
+                      materializes_messages=False),
 }
 
 

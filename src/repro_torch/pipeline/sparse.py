@@ -16,7 +16,14 @@ backward runs the same kernels again, as the reference's custom VJPs do:
   * edge aggregation (no-gather SpMM): d/dvalues = ct[dst_e];
   * Hadamard aggregation: saves only the node embeddings (x, y) and
     recomputes the edge products in two more ``hadamard_spmm`` calls
-    (the [E, D] message matrix exists neither forward nor backward).
+    (the [E, D] message matrix exists neither forward nor backward);
+  * intent aggregation (DGCF, ``intent_spmm``: out = A_w x with one
+    weight per edge and intent): d/dx = A_wᵀ ct, the same kernel over the
+    reverse CSR with the weights permuted into its edge order, and d/dw =
+    the per-edge, per-intent dots of ct and x (``intent_sddmm``);
+  * intent agreement (``intent_sddmm``: s_e = <a[row_e], b[src_e]> per
+    intent): d/da = A_g b and d/db = A_gᵀ a, ``intent_spmm`` over the
+    forward and the reverse CSR.  Per-edge state is [E, K], never [E, D].
 
 Sharded dispatch: under a ``ShardPlan`` that ``wants_ring``, node
 aggregation runs through ``dist.ring_spmm`` over the *unified* node space
@@ -112,6 +119,89 @@ class _HadamardAgg(torch.autograd.Function):
             d_y = kops.hadamard_spmm(x, ct, indptr, src, dst, n,
                                      structure="y_is_dst", impl=ctx.impl)
         return d_x, d_y, None, None, None
+
+
+class _IntentAgg(torch.autograd.Function):
+    """out[v, chunk k] = sum_{e in row v} w[e, k] * x[src_e, chunk k] over
+    ``fwd`` = (indptr, src, n_dst), w in ``fwd``'s edge order; backward
+    over the reverse CSR ``bwd`` = (indptr, src, n_src), ``to_bwd`` taking
+    [E, K] edge values from ``fwd``'s order into ``bwd``'s:
+
+      d_w[e, k] = <ct[row_e, chunk k], x[src_e, chunk k]>  (intent_sddmm, fwd)
+      d_x = the same aggregation of ct with to_bwd(w)      (intent_spmm, bwd)
+    """
+
+    @staticmethod
+    def forward(ctx, w, x, fwd, bwd, to_bwd, impl):
+        w, x = w.contiguous(), x.contiguous()
+        ctx.save_for_backward(w, x)
+        ctx.fwd, ctx.bwd, ctx.to_bwd, ctx.impl = fwd, bwd, to_bwd, impl
+        indptr, src, n = fwd
+        return kops.intent_spmm(w, x, indptr, src, n, impl=impl)
+
+    @staticmethod
+    def backward(ctx, ct):
+        w, x = ctx.saved_tensors
+        ct = ct.contiguous()
+        d_w = d_x = None
+        if ctx.needs_input_grad[0]:
+            indptr, src, _ = ctx.fwd
+            d_w = kops.intent_sddmm(ct, x, indptr, src, w.shape[1],
+                                    impl=ctx.impl)
+        if ctx.needs_input_grad[1]:
+            indptr, src, n = ctx.bwd
+            d_x = kops.intent_spmm(ctx.to_bwd(w), ct, indptr, src, n,
+                                   impl=ctx.impl)
+        return d_w, d_x, None, None, None, None
+
+
+class _IntentAgree(torch.autograd.Function):
+    """s[e, k] = <a[row_e, chunk k], b[src_e, chunk k]> over ``fwd`` =
+    (indptr, src, n_rows), in its edge order; backward:
+
+      d_a = sum_{e in row} g[e, k] * b[src_e, chunk k]   (intent_spmm, fwd)
+      d_b = the same over the reverse CSR ``bwd`` with to_bwd(g) and a
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, n_factors, fwd, bwd, to_bwd, impl):
+        a, b = a.contiguous(), b.contiguous()
+        ctx.save_for_backward(a, b)
+        ctx.fwd, ctx.bwd, ctx.to_bwd, ctx.impl = fwd, bwd, to_bwd, impl
+        indptr, src, _ = fwd
+        return kops.intent_sddmm(a, b, indptr, src, n_factors, impl=impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        d_a = d_b = None
+        if ctx.needs_input_grad[0]:
+            indptr, src, n = ctx.fwd
+            d_a = kops.intent_spmm(g, b, indptr, src, n, impl=ctx.impl)
+        if ctx.needs_input_grad[1]:
+            indptr, src, n = ctx.bwd
+            d_b = kops.intent_spmm(ctx.to_bwd(g), a, indptr, src, n,
+                                   impl=ctx.impl)
+        return d_a, d_b, None, None, None, None, None
+
+
+# one element as wide as a row of 4, 8 or 16 bytes (its bits copied as
+# they are)
+_ROW_AS_ONE = {4: torch.int32, 8: torch.int64, 16: torch.complex128}
+
+
+def take_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """v[idx] (int64 idx) for narrow rows: DGCF's [E, K] edge values and
+    [N, K] node values.  A row of 4, 8 or 16 bytes is viewed as one
+    element and taken by ``torch.take``, one thread an index: on the card
+    ``index_select``, ``gather`` and indexing give each index a thread
+    block of its own, and 16-byte rows leave nearly all of its threads
+    idle (9.1 ms for 15,083,885 rows of [E, 4] float32 on an H100)."""
+    one = _ROW_AS_ONE.get(v.shape[1] * v.element_size())
+    if one is None or not v.is_contiguous():
+        return v[idx]
+    return v.view(one).view(-1).take(idx).view(v.dtype).view(-1, v.shape[1])
 
 
 class _RingOp(torch.autograd.Function):
@@ -256,6 +346,12 @@ class BipartiteCSR:
       hadamard_agg_item(xu, xi) -> [n_items, D]   sum_e xu[u_e] * xi[i]
       hadamard_agg_user(xi, xu) -> [n_users, D]   sum_e xi[i_e] * xu[u]
       sym_propagate(x_user, x_item) -> one normalised LightGCN layer
+      intent_agg_user(w, x_item)  -> [n_users, D]  sum_e w[e, k] x_i chunk k
+      intent_agg_item(w, x_user)  -> [n_items, D]  (w in iu / ui order)
+      intent_agree_user(a_user, b_item, K) -> [E, K] iu order
+      intent_agree_item(a_item, b_user, K) -> [E, K] ui order
+      iu_to_ui(v) / ui_to_iu(v)   [E, K] edge values between the orders
+      rows_to_edges(v, side)      [E, K] node values at each edge's row
 
     ``hadamard`` selects NGCF's Hadamard-message route: 'fused' (the
     no-[E, D] ops), 'composed' (the edge_agg path) or 'auto' — fused
@@ -355,6 +451,63 @@ class BipartiteCSR:
         return _HadamardAgg.apply(
             xi, xu, (self.iu_indptr, self.iu_src, self.iu_dst, self.n_users),
             self._ui, self.impl)
+
+    # int64 edge indices of DGCF's [E, K] gathers (``take_rows``), made on
+    # first use and kept
+    @functools.cached_property
+    def _ui_to_iu_long(self) -> torch.Tensor:
+        return self.perm_ui_to_iu.long()
+
+    @functools.cached_property
+    def _iu_to_ui_long(self) -> torch.Tensor:
+        inv = torch.empty_like(self._ui_to_iu_long)
+        inv[self._ui_to_iu_long] = torch.arange(self.n_edges,
+                                                device=inv.device)
+        return inv
+
+    @functools.cached_property
+    def _edge_rows_long(self) -> dict[str, torch.Tensor]:
+        return {"user": self.iu_dst.long(), "item": self.ui_dst.long()}
+
+    def rows_to_edges(self, v: torch.Tensor, side: str) -> torch.Tensor:
+        """Each edge's row of the node values ``v``: ``v[u_e]`` in iu order
+        for ``side`` 'user', ``v[i_e]`` in ui order for 'item'."""
+        return take_rows(v, self._edge_rows_long[side])
+
+    def ui_to_iu(self, v: torch.Tensor) -> torch.Tensor:
+        """Edge values (rows of ``v``) from ui (item-sorted) order into iu
+        (user-sorted) order."""
+        return take_rows(v, self._ui_to_iu_long)
+
+    def iu_to_ui(self, v: torch.Tensor) -> torch.Tensor:
+        """Edge values from iu order into ui order."""
+        return take_rows(v, self._iu_to_ui_long)
+
+    def intent_agg_user(self, w: torch.Tensor,
+                        x_item: torch.Tensor) -> torch.Tensor:
+        """sum over u's edges of w[e, k] * x_item[i_e, chunk k]; w [E, K]
+        in iu order."""
+        return _IntentAgg.apply(w, x_item, self._iu, self._ui, self.iu_to_ui,
+                                self.impl)
+
+    def intent_agg_item(self, w: torch.Tensor,
+                        x_user: torch.Tensor) -> torch.Tensor:
+        """sum over i's edges of w[e, k] * x_user[u_e, chunk k]; w [E, K]
+        in ui order."""
+        return _IntentAgg.apply(w, x_user, self._ui, self._iu, self.ui_to_iu,
+                                self.impl)
+
+    def intent_agree_user(self, a_user: torch.Tensor, b_item: torch.Tensor,
+                          n_factors: int) -> torch.Tensor:
+        """[E, K] in iu order: <a_user[u_e, chunk k], b_item[i_e, chunk k]>."""
+        return _IntentAgree.apply(a_user, b_item, n_factors, self._iu,
+                                  self._ui, self.iu_to_ui, self.impl)
+
+    def intent_agree_item(self, a_item: torch.Tensor, b_user: torch.Tensor,
+                          n_factors: int) -> torch.Tensor:
+        """[E, K] in ui order: <a_item[i_e, chunk k], b_user[u_e, chunk k]>."""
+        return _IntentAgree.apply(a_item, b_user, n_factors, self._ui,
+                                  self._iu, self.ui_to_iu, self.impl)
 
     def seen_csr(self) -> tuple[np.ndarray, np.ndarray]:
         """(indptr, items) numpy user-CSR over the train interactions:

@@ -693,3 +693,113 @@ def test_fused_topk_kernel_matches_plain_on_nan(dev, case):
         assert torch.equal(i_k, i_p)
         assert torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
 
+
+
+def _intent_close(got, want, abs_sum, integer):
+    """Bitwise on integer-valued inputs (every order of adds is exact);
+    else |err| <= 1e-5 + 1e-5 x the sum of |terms| (float32 sums in
+    another order than the plain version's)."""
+    if integer:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= 1e-5 + 1e-5 * abs_sum).all())
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("d,k", [(64, 4), (128, 4), (16, 4), (8, 2), (12, 3)])
+def test_intent_kernels_match_plain(dev, d, k, integer):
+    """DGCF's ``intent_spmm`` and ``intent_sddmm`` libraries against their
+    plain versions on a CSR with empty rows: float4 lanes (D/K a multiple
+    of 4) and float lanes, D = 64 with K = 4 the cell's; one launch per
+    call, two calls bitwise; D = 12, K = 3 is refused by intent_sddmm's
+    lanes (D/K not a power of two)."""
+    rng = np.random.default_rng(d + k + integer)
+    n_src, n, e = 400, 300, 3000
+    dst = rng.integers(0, n // 2, e).astype(np.int32)
+    indptr, src, _ = build_csr_by_dst(dst, rng.integers(0, n_src, e), n)
+    ip = torch.from_numpy(indptr).to(dev, torch.int64)
+    s = torch.from_numpy(src).to(dev)
+
+    def feats(*shape):
+        a = rng.integers(-3, 4, shape) if integer \
+            else rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    w, x, a = feats(e, k), feats(n_src, d), feats(n, d)
+    before = launch_counts()["intent_spmm"]
+    got = ops.intent_spmm(w, x, ip, s, n)
+    assert launch_counts()["intent_spmm"] == before + 1
+    assert torch.equal(got, ops.intent_spmm(w, x, ip, s, n))
+    _intent_close(got, ref.intent_spmm_ref(w, x, ip, s, n),
+                  ref.intent_spmm_ref(w.abs(), x.abs(), ip, s, n), integer)
+    assert bool((got[n // 2:] == 0).all())           # rows with no edge
+    if d == 12:
+        with pytest.raises(ValueError, match="power of two"):
+            ops.intent_sddmm(a, x, ip, s, k)
+        return
+    before = launch_counts()["intent_sddmm"]
+    got = ops.intent_sddmm(a, x, ip, s, k)
+    assert launch_counts()["intent_sddmm"] == before + 1
+    assert torch.equal(got, ops.intent_sddmm(a, x, ip, s, k))
+    _intent_close(got, ref.intent_sddmm_ref(a, x, ip, s, k),
+                  ref.intent_sddmm_ref(a.abs(), x.abs(), ip, s, k), integer)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", ["long_row", "boundaries", "no_edges",
+                                  "long_indptr"])
+def test_intent_kernels_split_long_rows(dev, case, integer):
+    """The merge-path split of both intent kernels on the split graphs (a
+    Zipf row of 120,000 edges over ~117 chunks, rows of T - 1, T and T + 1
+    edges, a row on a chunk boundary, trailing empty rows, E = 0, an
+    over-long indptr), D = 64, K = 4."""
+    from repro_torch.kernels.intent import CHUNK
+    rng = np.random.default_rng(len(case) + 7 * integer)
+    indptr, n, src = _split_graph(case, CHUNK, rng)
+
+    def feats(*shape):
+        a = rng.integers(-3, 4, shape) if integer \
+            else rng.standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    ip = torch.from_numpy(indptr).to(dev)
+    s = torch.from_numpy(src).to(dev)
+    w, x, a = feats(len(src), 4), feats(500, 64), feats(len(indptr) - 1, 64)
+    got = ops.intent_spmm(w, x, ip, s, n)
+    assert torch.equal(got, ops.intent_spmm(w, x, ip, s, n))
+    _intent_close(got, ref.intent_spmm_ref(w, x, ip, s, n),
+                  ref.intent_spmm_ref(w.abs(), x.abs(), ip, s, n), integer)
+    got = ops.intent_sddmm(a, x, ip, s, 4)
+    assert torch.equal(got, ops.intent_sddmm(a, x, ip, s, 4))
+    _intent_close(got, ref.intent_sddmm_ref(a, x, ip, s, 4),
+                  ref.intent_sddmm_ref(a.abs(), x.abs(), ip, s, 4), integer)
+
+
+def test_dgcf_step_on_the_card_matches_the_plain_route(dev):
+    """One DGCF training step through ``Pipeline.step_fn`` on the kernels
+    against the same step on the plain route on the card: the loss within
+    1e-5 and each table after Adam within 1e-4 in the norm of its change
+    (float32 sums in other orders); both kernels launched."""
+    from repro_torch.data import synth
+    from repro_torch.pipeline import PipelineConfig, build_pipeline
+    data = synth.generate_bipartite(400, 300, 6000, seed=1)
+    out = []
+    for impl in (None, "torch"):
+        cfg = PipelineConfig(arch="dgcf", embed_dim=64, n_layers=1,
+                             base_batch=512, target_batch=512, microbatch=512,
+                             warmup_epochs=0, impl=impl)
+        pipe = build_pipeline(cfg, data, device=dev)
+        state0 = pipe.init_state()
+        p0 = [t.clone() for t in tree_leaves(state0["params"])]
+        before = launch_counts()
+        state, loss = pipe.step_fn(state0, 0)
+        after = launch_counts()
+        out.append((float(loss), p0, tree_leaves(state["params"]),
+                    {k: after[k] - before[k]
+                     for k in ("intent_spmm", "intent_sddmm")}))
+    (lk, p0, pk, nk), (lp, _, pp, np_) = out
+    assert nk["intent_spmm"] > 0 and nk["intent_sddmm"] > 0
+    assert np_ == {"intent_spmm": 0, "intent_sddmm": 0}
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b, z in zip(pk, pp, p0):
+        assert float((a - b).norm() / (b - z).norm()) <= 1e-4

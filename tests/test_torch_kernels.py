@@ -15,6 +15,7 @@ from repro.kernels.spmm import build_csr_by_dst, spmm_csr_pallas
 from repro.kernels.topk_score import fused_topk_score_pallas
 from repro_torch.kernels import _build, launch_counts, ops, ref
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.intent import intent_sddmm_cuda, intent_spmm_cuda
 from repro_torch.kernels.spmm import spmm_csr_cuda
 from repro_torch.kernels.topk_score import (ITEM_TILE, USER_TILE,
                                            fused_topk_score_cuda)
@@ -247,11 +248,17 @@ def _cpu_args():
                                                         **kw),
         "fused_topk_score": lambda **kw: ops.fused_topk_score(
             table[:3], table, ids, mask, k=2, n_items=6, **kw),
+        "intent_spmm": lambda **kw: ops.intent_spmm(
+            T(rng.random((10, 4)).astype(np.float32)), T(values),
+            T(indptr).long(), T(src), 6, **kw),
+        "intent_sddmm": lambda **kw: ops.intent_sddmm(
+            table, T(values), T(indptr).long(), T(src), 4, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["spmm_csr", "embedding_bag",
-                                  "fused_topk_score"])
+                                  "fused_topk_score", "intent_spmm",
+                                  "intent_sddmm"])
 def test_impl_cuda_on_cpu_tensor_raises(name):
     call = _cpu_args()[name]
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
@@ -289,14 +296,33 @@ def test_wrappers_refuse_cpu_tensors_and_bad_k():
         fused_topk_score_cuda(*topk_args, k=-1, n_items=3)
 
 
+def test_intent_wrappers_refuse_cpu_tensors_and_bad_widths():
+    """DGCF's kernels: CPU tensors, K not dividing D, and (intent_sddmm)
+    widths its lanes do not take are refused before any launch."""
+    ip, src = torch.zeros(3, dtype=torch.long), torch.zeros(0, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        intent_spmm_cuda(torch.zeros(0, 4), torch.zeros(2, 8), ip, src, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        intent_sddmm_cuda(torch.zeros(2, 8), torch.zeros(2, 8), ip, src, 4)
+    before = launch_counts()
+    # the plain routes take any width K divides, in float64 too
+    x = torch.ones(2, 6, dtype=torch.float64)
+    assert ops.intent_spmm(torch.ones(0, 3, dtype=torch.float64), x, ip, src,
+                           2).shape == (2, 6)
+    assert ops.intent_sddmm(x, x, ip, src, 3).shape == (0, 3)
+    assert launch_counts() == before
+
+
 def test_every_kernel_source_is_bound_and_annotated():
     """Each csrc/*.cu has a ctypes signature table, a versioned library
-    name, and a source note naming the TPU kernel it replaces."""
+    name, and a source note naming the TPU kernel it replaces, or saying
+    it replaces none (DGCF's, whose model the JAX package lacks)."""
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert sources == sorted(_build.SIGNATURES)
     for name in sources:
         text = (_build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces src/repro/kernels/" in text and "Bound:" in text
+        assert ("Replaces src/repro/kernels/" in text
+                or "Replaces no TPU kernel" in text) and "Bound:" in text
         assert "sm_90a" in text
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.suffix == ".so"

@@ -110,12 +110,14 @@ def test_names_lie_in_a_cpu_profiler_trace_on_its_clock(traced):
 
 
 @pytest.mark.parametrize("on", [False, True])
-@pytest.mark.parametrize("arch", ["lightgcn", "ngcf"])
+@pytest.mark.parametrize("arch", ["lightgcn", "ngcf", "dgcf"])
 def test_training_step_counts_its_host_waits(arch, on):
     """One wait a step on the CPU (the loss read); the spans of each
     phase, ``step::stage`` once a step for the next step and once more in
     the first, which finds no batch staged and stages its own inside
-    ``step::batch``, and the first epoch's hand-over, drawn inline."""
+    ``step::batch``, and the first epoch's hand-over, drawn inline.  DGCF
+    adds, per forward of its one layer, a ``dgcf::route`` for each of its
+    2 routing iterations and one ``dgcf::agree`` between them."""
     pipe = _pipe(arch)
     trace.enable(on)
     try:
@@ -127,6 +129,8 @@ def test_training_step_counts_its_host_waits(arch, on):
             "step::forward": 4, "step::backward": 4, "step::update": 2,
             "step::commit": 2, "host_wait::loss": 2,
             "step::perm": 1, "step::perm_draw": 1}
+    if arch == "dgcf":
+        want.update({"dgcf::route": 8, "dgcf::agree": 4})
     assert _counts(d) == (want if on else {})
 
 
@@ -331,7 +335,7 @@ def _witness_step(card, monkeypatch, arch, pins, step):
     return d, waits - landed
 
 
-_WITNESSED = [("lightgcn", None), ("ngcf", None),
+_WITNESSED = [("lightgcn", None), ("ngcf", None), ("dgcf", None),
               ("lightgcn", {"_embed": "host"})]
 
 
